@@ -1,0 +1,105 @@
+"""Public wrappers of the ``stream_rf`` kernels.
+
+* :func:`stream_stats_op` — Eq. 1 seek count and Eq. 6 seek distance of
+  every row, ``(M, N) -> (rf, pct, dist)``;
+* :func:`stream_rf_op` — the count alone, ``(M, N) -> rf``;
+* :func:`random_percentage_op` — ``rf / (N - 1)`` in float64.
+
+On a CUDA tensor they launch the hand-written kernel
+(``csrc/stream_rf.cu``) on the current stream, and raise if it cannot be
+built or launched; on a CPU tensor they run the plain torch version
+(:mod:`repro_torch.kernels.stream_rf.ref`).  There is no fallback from
+the card to the plain version.
+
+``launches`` counts the kernel launches of each wrapper, so a run can show
+that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref
+
+launches = {"stream_stats": 0, "stream_rf": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _checked(offsets: torch.Tensor, sizes) -> tuple[torch.Tensor, torch.Tensor]:
+    """Validate the kernel's contract; returns contiguous int64 ``(M, N)``
+    offsets and sizes (sizes broadcast to the offsets' shape)."""
+
+    if not isinstance(offsets, torch.Tensor) or offsets.dim() != 2:
+        raise ValueError("offsets must be an (M, N) tensor")
+    if offsets.dtype != torch.int64:
+        raise TypeError(f"offsets must be int64, got {offsets.dtype}")
+    if not offsets.is_contiguous():
+        raise ValueError("offsets must be contiguous")
+    sizes = torch.as_tensor(sizes, device=offsets.device)
+    if sizes.dtype != torch.int64:
+        raise TypeError(f"sizes must be int64, got {sizes.dtype}")
+    if sizes.device != offsets.device:
+        raise ValueError("offsets and sizes must be on one device")
+    n = offsets.shape[1]
+    if n < 2 or n > 1024 or n & (n - 1):
+        raise ValueError(f"stream length {n} must be a power of two in [2, 1024]")
+    return offsets, sizes.expand(offsets.shape).contiguous()
+
+
+def _launch(offs: torch.Tensor, szs: torch.Tensor, with_dist: bool):
+    from .kernel import load  # builds with nvcc on first use
+
+    m, n = offs.shape
+    rf = torch.empty(m, dtype=torch.int64, device=offs.device)
+    dist = torch.empty(m, dtype=torch.int64, device=offs.device) if with_dist else None
+    if m == 0:
+        return rf, dist
+    lib = load()
+    with torch.cuda.device(offs.device):
+        stream = torch.cuda.current_stream(offs.device).cuda_stream
+        err = lib.stream_stats_launch(
+            offs.data_ptr(), szs.data_ptr(), rf.data_ptr(),
+            dist.data_ptr() if with_dist else None, m, n, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"stream_rf kernel launch failed: cudaError {err}")
+    launches["stream_stats" if with_dist else "stream_rf"] += 1
+    return rf, dist
+
+
+def _run(offsets, sizes, with_dist: bool):
+    offs, szs = _checked(offsets, sizes)
+    if offs.device.type == "cpu":
+        rf, dist = ref.stream_stats_ref(offs, szs)
+        return rf, (dist if with_dist else None)
+    if offs.device.type == "cuda":
+        return _launch(offs, szs, with_dist)
+    raise ValueError(f"no stream_rf kernel for device {offs.device}")
+
+
+def stream_stats_op(
+    offsets: torch.Tensor, sizes
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(M, N)`` int64 -> ``(rf int64, pct float64, dist int64)``, each
+    ``(M,)``, bit-equal to the NumPy oracle ``stream_stats_batch_np``."""
+
+    rf, dist = _run(offsets, sizes, with_dist=True)
+    pct = rf.to(torch.float64) / (offsets.shape[1] - 1)
+    return rf, pct, dist
+
+
+def stream_rf_op(offsets: torch.Tensor, sizes) -> torch.Tensor:
+    """``(M, N)`` int64 -> Eq. 1 seek counts ``(M,)`` int64."""
+
+    return _run(offsets, sizes, with_dist=False)[0]
+
+
+def random_percentage_op(offsets: torch.Tensor, sizes) -> torch.Tensor:
+    """``(M, N)`` int64 -> ``rf / (N - 1)`` ``(M,)`` float64."""
+
+    rf = stream_rf_op(offsets, sizes)
+    return rf.to(torch.float64) / (offsets.shape[1] - 1)

@@ -1,0 +1,2 @@
+"""Launchers of the port: batched serving (``python -m
+repro_torch.launch.serve``) and its step functions."""

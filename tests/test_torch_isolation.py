@@ -1,6 +1,7 @@
 """The port stands alone: no module of it imports JAX or the reference
-package, it runs with both blocked, and its entry points refuse to fall
-back to the CPU quietly when no CUDA card is present."""
+package, it runs (fleet sweep and serving) with both blocked, and its entry
+points refuse to fall back to the CPU quietly when no CUDA card is
+present."""
 
 import ast
 import os
@@ -11,8 +12,11 @@ import sys
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import FleetProgram, compute_stream_scores, replay_lanes, simulate_device
 from repro_torch.core import engine_device as ed
+from repro_torch.launch.serve import serve
+from repro_torch.models import get_model
 from repro_torch.testing.traces import golden_trace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -46,6 +50,11 @@ batch = golden_trace("strided-gaps")
 res = FleetProgram(num_nodes=2, policy="round-robin-app", ssd_capacity=64 << 20,
                    device="cpu").run(batch)
 assert all(fr.total_bytes == batch.total_bytes for fr in res.values())
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.serve import serve
+for arch in ("qwen3-1.7b", "falcon-mamba-7b"):
+    out = serve(get_smoke_config(arch), batch=2, prompt_len=8, gen=3, device="cpu")
+    assert out["tokens"].shape == (2, 3)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("ok", sorted(res))
@@ -83,6 +92,15 @@ def test_other_entry_points_need_cuda_by_default(no_cuda):
             ed._stack_lanes([ed.initial_lane_state("ssdup+", 64)]))
     with pytest.raises(RuntimeError, match="CUDA"):
         replay_lanes(*args)
+
+
+def test_model_entry_points_need_cuda_by_default(no_cuda):
+    cfg = get_smoke_config("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(cfg, batch=1, prompt_len=4, gen=1)
+    assert get_model(cfg, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -20,6 +20,7 @@ from repro.core.random_factor import stream_stats_batch_np
 from repro.kernels.stream_rf import ops as pallas_ops
 from repro.kernels.stream_rf.ref import threshold_quantile_ref as jnp_quantile
 from repro_torch.core.random_factor import stream_stats_batch
+from repro_torch.kernels import build
 from repro_torch.kernels.stream_rf import kernel, ops, ref
 
 MS = (1, 3, 8, 37, 300)
@@ -143,11 +144,11 @@ def test_empty_matrix():
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     """Without a CUDA compiler the build raises; it never falls back."""
 
-    monkeypatch.setattr(kernel.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(kernel.os, "access", lambda path, mode: False)
+    monkeypatch.setattr(build.os, "access", lambda path, mode: False)
     with pytest.raises(RuntimeError, match="nvcc"):
-        kernel._nvcc()
+        build.nvcc()
 
 
 def test_kernel_source_names_what_it_replaces():

@@ -33,14 +33,18 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    falcon-mamba-7b at full width and depth in bf16, batch 4, prompt 2048,
    32 greedy tokens, with launch counts reset just before and read just
    after; then prefill/decode times from a second call, a profile of one
-   prefill and one decode step, decode against forward, and the
-   ``"torch"`` prefill against the kernel prefill;
+   prefill and one decode step, ``ssm_scan`` held against its plain
+   version on the delta and A falcon-mamba-7b's first and last layers give
+   it (x, B and C rescaled to unit RMS; x in bf16 and in f32), decode
+   against forward, and the ``"torch"``
+   prefill against the kernel prefill;
 7. f32     — decode against forward and the ``"torch"`` prefill against
    the kernel prefill, at full width and depth in f32; and card against CPU: each model at full width, depth 2, one 256-token
    prompt, f32 with TF32 off, the same weights on both;
 8. model-kernel timings — ``flash_attention`` and ``ssm_scan`` at the
    shapes the serve path gives them, beside their bounds, plain versions
-   and (attention) ``scaled_dot_product_attention``.
+   and (attention) ``scaled_dot_product_attention``; attention in bf16
+   (tensor cores) and, as ``f32_ms``, in f32 (CUDA cores).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.
@@ -96,9 +100,9 @@ MODEL_SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "ssm_scan": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
 }
-# H100 SXM published peaks (dense): bf16 tensor cores, and f32 on the CUDA
-# cores (the attention kernel takes no TF32); special-function units compute
-# 16 exponentials per clock per SM.
+# H100 SXM published peaks (dense): bf16 tensor cores (the attention
+# kernel's bf16 path), and f32 on the CUDA cores (its f32 path takes no
+# TF32); special-function units compute 16 exponentials per clock per SM.
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 SFU_PER_CLOCK_PER_SM = 16
@@ -486,6 +490,12 @@ FA_CASES = [  # (b, h, kv, sq, sk, hd, causal)
     (2, 4, 2, 100, 77, 128, True),   # ragged, Sq > Sk
     (1, 3, 1, 77, 130, 32, False),   # ragged, Sq < Sk
     (1, 4, 4, 33, 33, 16, True),
+    # every head dim of the bf16 tensor-core kernel on ragged lengths
+    (1, 4, 2, 300, 200, 16, True),
+    (1, 4, 2, 300, 200, 32, True),
+    (1, 4, 2, 300, 200, 64, True),
+    (1, 4, 2, 300, 200, 128, True),
+    (2, 2, 1, 200, 333, 64, False),
     (SERVE_BATCH, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True),  # qwen3-1.7b prefill
 ]
 SSM_CASES = [  # (b, s, di, n, block_d, chunk)
@@ -493,7 +503,11 @@ SSM_CASES = [  # (b, s, di, n, block_d, chunk)
     (2, 64, 32, 8, 16, 16),
     (1, 128, 64, 16, 64, 32),
     (3, 96, 48, 8, 16, 32),
-    (2, 40, 24, 16, 24, 8),    # DI*N not a multiple of the thread block
+    (2, 40, 24, 16, 24, 8),    # DI not a multiple of the 128-channel block
+    (2, 100, 200, 1, 200, 100),  # N = 1, 2 and 32; S not a multiple of the 32-step chunk
+    (2, 100, 200, 2, 40, 50),
+    (2, 96, 200, 32, 100, 32),
+    (1, 70, 37, 4, 37, 70),    # DI not a multiple of 8: plain loads, no 16-byte copies
     (SERVE_BATCH, SERVE_PROMPT, 8192, 16, 512, 256),  # falcon-mamba-7b prefill
 ]
 
@@ -641,6 +655,8 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
         f"step {dec_wall * 1e3 / 3:.1f} ms, device busy {dec_busy * 1e3 / 3:.2f} ms "
         f"({dec_busy / dec_wall:.1%}) over {dec_ops // 3} ops a step")
     log(f"[serve] {arch}: prefill's largest device ops (ms, calls): {json.dumps(top)}")
+    scan_err = (scan_on_model_inputs(model, params, prompts, cfg.n_layers)
+                if name == "ssm_scan" else None)
 
     with torch.inference_mode():
         # decode against forward: prefill(tokens[:-1]) + one step vs prefill(tokens);
@@ -693,12 +709,64 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
         "prefill_device_ops": pre_ops, "profiled_decode_step_ms": dec_wall * 1e3 / 3,
         "decode_step_busy_ms": dec_busy * 1e3 / 3, "decode_step_device_ops": dec_ops // 3,
         "prefill_top_device_ops": top,
+        "scan_on_model_inputs_max_abs_err": scan_err,
     }
     log(f"[serve] {json.dumps(out)}")
     del params, model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return out
+
+
+def scan_on_model_inputs(model, params, prompts: torch.Tensor, n_layers: int) -> dict:
+    """``ssm_scan`` against its plain version on the arguments the model
+    gives it in one prefill at the serve shape (delta = softplus of a
+    projection, A = -exp(A_log)), at the first and the last layer, with x
+    in bf16 and in f32.  The random weights make x, B and C small, which
+    would leave the absolute tolerance nothing to test; y is linear in
+    each, so each is rescaled to unit RMS first, the scale of the other
+    scan cases.  Returns the largest |error| of y for each x dtype."""
+
+    kernel_op, captured = model_layers.ssm_scan_op, []
+
+    def capture(*args, **kw):
+        if len(captured) in (0, n_layers - 1):
+            captured.append((args, kw))
+        else:
+            captured.append(None)
+        return kernel_op(*args, **kw)
+
+    model_layers.ssm_scan_op = capture
+    try:
+        with torch.inference_mode():
+            model.prefill(params, {"tokens": prompts})
+    finally:
+        model_layers.ssm_scan_op = kernel_op
+    def unit_rms(t):
+        t = t.float()
+        return t / t.square().mean().sqrt()
+
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for layer in (0, n_layers - 1):
+        (delta, B, C, x, A), kw = captured[layer]
+        rms = [float(t.float().square().mean().sqrt()) for t in (x, B, C)]
+        log(f"[serve] scan inputs of layer {layer}: delta in [{float(delta.min()):.3g}, "
+            f"{float(delta.max()):.3g}], mean {float(delta.mean()):.3g}; A in "
+            f"[{float(A.min()):.3g}, {float(A.max()):.3g}]; RMS of x, B, C "
+            f"{rms[0]:.3g}, {rms[1]:.3g}, {rms[2]:.3g}")
+        B, C, x = unit_rms(B), unit_rms(C), unit_rms(x)
+        for xdtype in (torch.bfloat16, torch.float32):
+            args = (delta, B, C, x.to(xdtype), A)
+            y, h = ssm_ops.ssm_scan_op(*args, **kw)
+            yr, hr = ssm_ref.ssm_scan_ref(*args)
+            label = f"ssm_scan on layer {layer}'s inputs {tuple(delta.shape)} x {xdtype}"
+            key = str(xdtype).removeprefix("torch.")
+            worst[key] = max(worst[key], _held(label + " y", y, yr, SSM_TOL[xdtype],
+                                               SSM_TOL[xdtype]))
+            _held(label + " h_last", h, hr, 1e-3, 1e-3)
+    log(f"[serve] ssm_scan on the model's own delta and A (layers 0 and {n_layers - 1}; x, B, "
+        f"C at unit RMS) within 1e-4 (x f32) / 3e-2 (x bf16): max |y err| {json.dumps(worst)}")
+    return worst
 
 
 def top_device_ops(fn, k: int = 8) -> list:
@@ -834,6 +902,7 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     ms = cuda_ms(raw_fa_launch(q, k, v), iters=20, warmup=3)
+    f32_ms = cuda_ms(raw_fa_launch(q.float(), k.float(), v.float()), iters=5, warmup=1)
     out.append({
         "name": "flash_attention", "route": "cuda", "source": MODEL_SOURCES["flash_attention"],
         "replaces": REPLACES["flash_attention"], "launches": launches["flash_attention"],
@@ -849,6 +918,10 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
                   "causal": True, "layout": "bshd"},
         "flops": flops, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+        # the f32 path (CUDA cores, no TF32) on the same inputs in f32, against
+        # the 67 TFLOP/s f32 rate
+        "f32_ms": f32_ms, "f32_achieved_tflops": flops / (f32_ms * 1e-3) / 1e12,
+        "f32_ops_ms": flops / F32_FLOPS * 1e3,
         "library_call": "F.scaled_dot_product_attention(q, k, v, is_causal=True, "
                         "enable_gqa=True): a yardstick the port never calls",
     })
@@ -915,6 +988,9 @@ def main() -> int:
         res = phase_serve(dev, arch)
         for name, count in res["launches"].items():
             model_launches[name] = max(model_launches.get(name, 0), count)
+        if res["scan_on_model_inputs_max_abs_err"]:
+            model_worst["ssm_scan"] = max(model_worst["ssm_scan"],
+                                          *res["scan_on_model_inputs_max_abs_err"].values())
     for arch in SERVE_ARCHS:
         phase_f32_paths(dev, arch)
         phase_card_vs_cpu(dev, arch)

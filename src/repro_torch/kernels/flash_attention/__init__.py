@@ -1,2 +1,3 @@
-"""FlashAttention-2 forward: the CUDA kernel, its loader, its wrappers
-(:mod:`.ops`) and its plain torch version (:mod:`.ref`)."""
+"""FlashAttention forward: the CUDA kernel (tensor cores in bf16, CUDA
+cores in f32), its loader, its wrappers (:mod:`.ops`) and its plain torch
+version (:mod:`.ref`)."""

@@ -10,7 +10,9 @@ On a CUDA tensor they launch the hand-written kernel
 (``csrc/flash_attention.cu``) on the current stream, and raise if it cannot
 be built or launched; on a CPU tensor they run the plain torch version
 (:mod:`repro_torch.kernels.flash_attention.ref`).  There is no fallback
-from the card to the plain version.
+from the card to the plain version.  In bf16 the kernel reads q, k and v
+by TMA, which needs 16-byte aligned starts and strides; a view that is not
+so aligned is copied first.
 
 The kernel masks ragged tiles itself, so any sequence length works, and
 ``block_q``/``block_k`` (kept for the reference's signature, which needs
@@ -65,9 +67,21 @@ def _check(q, k, v, seq_dim: int, head_dim: int, block_q: int, block_k: int) -> 
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
 
 
+def _tma_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if TMA can read it (start and outer strides on 16
+    bytes), else a contiguous copy."""
+
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % step == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch(q, k, v, *, causal: bool, scale: float, seq_dim: int, head_dim: int):
     from .kernel import load  # builds with nvcc on first use
 
+    if q.dtype == torch.bfloat16:
+        q, k, v = _tma_aligned(q), _tma_aligned(k), _tma_aligned(v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lib = load()
     strides = []

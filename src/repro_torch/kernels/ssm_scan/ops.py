@@ -6,7 +6,7 @@ x's dtype, h_last (B,DI,N) f32), with h starting at zero.  It raises
 ``ValueError`` where the reference raises: S not divisible by
 ``min(chunk, S)`` or DI by ``min(block_d, DI)``.  Beyond that check the two
 block sizes cannot change the result: the kernel walks the whole sequence
-in one loop per (b, d, n).
+in one loop per (b, d) channel.
 
 On a CUDA tensor it launches the hand-written kernel (``csrc/ssm_scan.cu``)
 on the current stream, and raises if it cannot be built or launched; on a

@@ -7,6 +7,8 @@ CUDA kernel itself is held against that version on the card by
 ``chip_smoke.py`` and by ``tests/test_torch_on_card.py``.
 """
 
+import math
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -86,6 +88,58 @@ def test_bshd_vs_pallas(causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
+def _emulate_bf16_kernel(q, k, v, causal, scale):
+    """The CUDA kernel's bf16 arithmetic in torch, f32 inputs holding bf16
+    values: 128-row query tiles against 128-key tiles, S = Q K^T in f32 and
+    then scaled by scale * log2(e), exp2, the online softmax in f32, and P
+    rounded to bf16 before the P V product (l sums the unrounded P)."""
+
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(h // kv, dim=1)
+    v = v.repeat_interleave(h // kv, dim=1)
+    neg = torch.finfo(torch.float32).min
+    out = torch.empty(b, h, sq, hd)
+    tile = 128
+    for q0 in range(0, sq, tile):
+        rows = torch.arange(q0, min(q0 + tile, sq))
+        qt = q[:, :, rows]
+        m = torch.full((b, h, len(rows), 1), neg)
+        l = torch.zeros(b, h, len(rows), 1)
+        acc = torch.zeros(b, h, len(rows), hd)
+        k_end = min(sk, q0 + tile) if causal else sk
+        for k0 in range(0, k_end, tile):
+            keys = torch.arange(k0, min(k0 + tile, sk))
+            s = (qt @ k[:, :, keys].transpose(-1, -2)) * (scale * math.log2(math.e))
+            if causal:
+                s = s.masked_fill(rows[:, None] < keys[None, :], neg)
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(s - mx)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.to(torch.bfloat16).float() @ v[:, :, keys]
+            m = mx
+        out[:, :, rows] = acc / torch.where(l == 0, 1.0, l)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_rounding_fits_the_tolerance(causal):
+    """The tensor-core kernel's numerics (P in bf16 for P V, the scale after
+    Q K^T) stay within the bf16 tolerance of the Pallas kernel: hd 128,
+    S 256, GQA."""
+
+    arrays = _inputs(2, 4, 2, 256, 256, 128, 21 + causal)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "bfloat16")
+    want = jax_op(jq, jk, jv, causal=causal, block_q=128, block_k=128, interpret=True)
+    got = _emulate_bf16_kernel(tq.float(), tk.float(), tv.float(), causal, 1 / math.sqrt(128))
+    tol = DTYPES["bfloat16"][2]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    # the emulation is the plain version up to P's rounding
+    plain = ref.flash_attention_ref(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(plain), atol=tol, rtol=tol)
+
+
 def test_block_args_do_not_change_the_result():
     (_, _, _), (q, k, v) = _both(_inputs(1, 2, 2, 256, 256, 64, 3), "float32")
     a = ops.flash_attention_op(q, k, v, causal=True, block_q=64, block_k=64)
@@ -131,6 +185,19 @@ def _t(*shape, dtype=torch.float32):
 def test_wrapper_rejects_what_the_kernel_does_not_take(q, k, v, exc):
     with pytest.raises(exc):
         ops.flash_attention_op(q, k, v)
+
+
+def test_tma_alignment_copies_only_what_tma_cannot_read():
+    aligned = torch.zeros(2, 8, 4, 16, dtype=torch.bfloat16)
+    assert ops._tma_aligned(aligned) is aligned
+    swapped = aligned.transpose(1, 2)  # the model's layout: strides still on 16 bytes
+    assert ops._tma_aligned(swapped) is swapped
+    odd = torch.zeros(2, 8, 4, 20, dtype=torch.bfloat16)[..., :16]  # strides off 16 bytes
+    fixed = ops._tma_aligned(odd)
+    assert fixed is not odd and fixed.is_contiguous() and torch.equal(fixed, odd)
+    shifted = torch.zeros(2 * 8 * 4 * 16 + 1, dtype=torch.bfloat16)[1:].view(2, 8, 4, 16)
+    fixed = ops._tma_aligned(shifted)
+    assert fixed is not shifted and fixed.data_ptr() % 16 == 0
 
 
 def test_cpu_runs_the_plain_version_and_counts_no_launch():

@@ -61,6 +61,62 @@ def test_flash_attention_vs_plain(card, b, h, kv, sq, sk, hd, causal, dtype):
     assert torch.equal(got_bshd.transpose(1, 2), got)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(300, 200), (200, 333)])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attention_bf16_every_head_dim(card, hd, sq, sk, causal):
+    """Each template instance of the tensor-core kernel, on ragged lengths
+    (not multiples of its 128-row tiles) with GQA."""
+
+    g = torch.Generator(device=card).manual_seed(hd + sq)
+    q = torch.randn(2, 4, sq, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(2, 2, sk, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(2, 2, sk, hd, generator=g, device=card).bfloat16()
+    got = fa_ops.flash_attention_op(q, k, v, causal=causal)
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    got_bshd = fa_ops.flash_attention_bshd(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), causal=causal)
+    assert torch.equal(got_bshd.transpose(1, 2), got)
+
+
+def test_flash_attention_bf16_views_tma_cannot_read(card):
+    """Views whose strides are not on 16 bytes are copied before the
+    kernel reads them by TMA; the result is the same."""
+
+    g = torch.Generator(device=card).manual_seed(3)
+    wide = torch.randn(1, 2, 130, 68, generator=g, device=card).bfloat16()
+    q = wide[:, :, 1:, :64]  # start and strides off 16 bytes
+    k = torch.randn(1, 2, 129, 64, generator=g, device=card).bfloat16()
+    v = torch.randn(1, 2, 129, 64, generator=g, device=card).bfloat16()
+    got = fa_ops.flash_attention_op(q, k, v, causal=True)
+    assert torch.equal(got, fa_ops.flash_attention_op(q.contiguous(), k, v, causal=True))
+    torch.testing.assert_close(got.float(), fa_ref.flash_attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("di", [200, 37])  # 37: DI not a multiple of 8 (no 16-byte copies)
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32])
+def test_ssm_scan_every_state_size(card, n, di, xdtype):
+    """Each template instance of the scan, DI not a multiple of the
+    128-channel block, S not a multiple of the 32-step chunk."""
+
+    rng = np.random.default_rng(n * 100 + di)
+    b, s = 2, 70
+    delta = torch.from_numpy(np.abs(rng.normal(0, 0.1, (b, s, di))).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(b, s, n)).astype(np.float32))
+    C = torch.from_numpy(rng.normal(size=(b, s, n)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(b, s, di)).astype(np.float32)).to(xdtype)
+    A = torch.from_numpy(-np.abs(rng.normal(1, 0.3, (di, n))).astype(np.float32))
+    args = [t.to(card) for t in (delta, B, C, x, A)]
+    y, h = ssm_ops.ssm_scan_op(*args, block_d=di, chunk=s)
+    yr, hr = ssm_ref.ssm_scan_ref(*args)
+    torch.testing.assert_close(y.float(), yr.float(), atol=SSM_TOL[xdtype],
+                               rtol=SSM_TOL[xdtype])
+    torch.testing.assert_close(h, hr, atol=1e-3, rtol=1e-3)
+
+
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("b,s,di,n,bd,ck", [
     (1, 32, 16, 4, 16, 16),
@@ -78,6 +134,32 @@ def test_ssm_scan_vs_plain(card, b, s, di, n, bd, ck, xdtype):
     A = torch.from_numpy(-np.abs(rng.normal(1, 0.3, (di, n))).astype(np.float32))
     args = [t.to(card) for t in (delta, B, C, x, A)]
     y, h = ssm_ops.ssm_scan_op(*args, block_d=bd, chunk=ck)
+    yr, hr = ssm_ref.ssm_scan_ref(*args)
+    torch.testing.assert_close(y.float(), yr.float(), atol=SSM_TOL[xdtype],
+                               rtol=SSM_TOL[xdtype])
+    torch.testing.assert_close(h, hr, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n", [1, 16, 32])
+def test_ssm_scan_on_delta_as_the_model_makes_it(card, n, xdtype):
+    """delta = softplus(projection + dt_bias) and A = -(1..N), as a Mamba-1
+    block makes them, dt_bias from Mamba's dt init (log-uniform in
+    [1e-3, 0.1]), over 512 steps: long memories (delta * A near 0) and fast
+    decays (delta * A below -1) in one input."""
+
+    rng = np.random.default_rng(n)
+    b, s, di, dr = 2, 512, 200, 16
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), di))
+    dt_bias = dt + np.log(-np.expm1(-dt))  # softplus^-1(dt)
+    proj = rng.normal(size=(b, s, dr)) @ rng.normal(0, 0.25, (dr, di))
+    delta = torch.nn.functional.softplus(torch.from_numpy(proj + dt_bias).float())
+    B = torch.from_numpy(rng.normal(size=(b, s, n)).astype(np.float32))
+    C = torch.from_numpy(rng.normal(size=(b, s, n)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(b, s, di)).astype(np.float32)).to(xdtype)
+    A = -torch.arange(1, n + 1, dtype=torch.float32).expand(di, n).contiguous()
+    args = [t.to(card) for t in (delta, B, C, x, A)]
+    y, h = ssm_ops.ssm_scan_op(*args, block_d=di, chunk=128)
     yr, hr = ssm_ref.ssm_scan_ref(*args)
     torch.testing.assert_close(y.float(), yr.float(), atol=SSM_TOL[xdtype],
                                rtol=SSM_TOL[xdtype])

@@ -9,8 +9,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``flash_attention``, ``ssm_scan``) from ``src/repro_torch/kernels/*/csrc``,
    one nvcc per source, all started together;
 2. kernels — hold ``stream_stats`` and ``stream_rf`` on the card against
-   their plain torch versions and the NumPy oracle, bit for bit (ties,
-   offsets up to 2^40, many shapes); hold ``flash_attention`` and
+   their plain torch versions and the NumPy oracle, bit for bit (ties of
+   differing sizes at every N from 2 to 1024, offsets up to 2^40, int64
+   wrap, negative offsets, rows at INT64_MIN and INT64_MAX, the whole
+   int64 range, which takes the kernel's wide branch, and packed and wide
+   rows in one launch); hold ``flash_attention`` and
    ``ssm_scan`` against their plain versions in f32 and bf16 over the
    reference tests' shapes, GQA/MQA, causal or not, Sq != Sk, ragged
    lengths and the serve slice's own shapes, at the reference tests'
@@ -23,12 +26,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    (64 KiB requests, offsets uniform in [0, 2^38), 16 files, 8 apps, one
    30 s gap mid-trace) over 64 nodes x 4 schemes = 256 lanes,
    range-offset sharding; kernel launch counts are reset just before and
-   read just after the first sweep; bytes must be conserved, and the
-   card's result must match the same sweep run on the CPU;
+   read just after the first sweep, which must launch ``stream_stats``
+   exactly once (every shard's streams in one matrix); bytes must be
+   conserved, and the card's result must match the same sweep run on the
+   CPU; the first call is timed again in parts, scoring per shard and in
+   one launch taking turns;
 5. timings — both stream kernels held bit-equal to their plain versions on
-   every padded shard matrix the sweep fed them, then timed at the
-   largest shard's shape and at the whole trace's, beside their byte
-   bound, their plain versions and ``torch.sort``;
+   every padded shard matrix the sweep feeds them and on their
+   concatenation, then timed at that one-launch shape, at the largest
+   shard's and at the whole trace's, beside their byte bound, their plain
+   versions and ``torch.sort``;
 6. serve   — the model main path: ``serve`` of qwen3-1.7b and of
    falcon-mamba-7b at full width and depth in bf16, batch 4, prompt 2048,
    32 greedy tokens, with launch counts reset just before and read just
@@ -70,7 +77,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import FleetProgram, TraceBatch, simulate_device  # noqa: E402
+from repro_torch.core import FleetProgram, TraceBatch, compute_stream_scores  # noqa: E402
+from repro_torch.core import simulate_device  # noqa: E402
+from repro_torch.core import engine_device as ed  # noqa: E402
+from repro_torch.core.trace import _score_shards_kernel  # noqa: E402
 from repro_torch.core.random_factor import stream_stats_batch_np  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -83,9 +93,11 @@ from repro_torch.launch.serve import pad_cache, serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.testing import golden  # noqa: E402
-from repro_torch.testing.traces import golden_trace, trace_fingerprint  # noqa: E402
+from repro_torch.testing.stream_rows import KINDS, stream_rows  # noqa: E402
+from repro_torch.testing.traces import golden_trace, sweep_trace, trace_fingerprint  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+L2_BYTES = 50 << 20  # H100 L2
 SWEEP_REQUESTS = 1_000_000
 SWEEP_NODES = 64
 SCHEMES = ("orangefs", "orangefs-bb", "ssdup", "ssdup+")
@@ -134,24 +146,13 @@ def fail(msg: str) -> None:
 # -- inputs -------------------------------------------------------------
 
 
-def sweep_trace(n: int = SWEEP_REQUESTS, seed: int = 0) -> TraceBatch:
-    """Random-heavy multi-app trace with one mid-trace compute gap."""
-
-    rng = np.random.default_rng(seed)
-    return TraceBatch(
-        offsets=rng.integers(0, 1 << 38, size=n).astype(np.int64),
-        sizes=np.full(n, 64 << 10, dtype=np.int64),
-        file_ids=rng.integers(0, 16, size=n).astype(np.int64),
-        app_ids=rng.integers(0, 8, size=n).astype(np.int64),
-        times=np.zeros(n),
-        gap_positions=np.asarray([n // 2], dtype=np.int64),
-        gap_seconds=np.asarray([30.0]),
-    )
-
-
 def kernel_cases(rng: np.random.Generator):
     """(name, offsets, sizes) matrices: random up to 2^40, heavy ties of
-    differing sizes, contiguous and reversed rows."""
+    differing sizes, contiguous and reversed rows; then every row kind of
+    ``repro_torch.testing.stream_rows`` at every width the kernel takes:
+    ties at every N, int64 wrap, negative offsets, rows at ``INT64_MIN``
+    and ``INT64_MAX``, the whole int64 range (the kernel's wide branch) and
+    packed and wide rows mixed in one launch."""
 
     shapes = [(m, n) for m in (1, 3, 8, 37, 300) for n in (8, 64, 128)]
     shapes += [(5, 2), (9, 32), (17, 256), (4, 1024), (7813, 128)]
@@ -163,6 +164,11 @@ def kernel_cases(rng: np.random.Generator):
         run = np.arange(n) * 65536 + rng.integers(0, 1 << 30, size=(m, 1))
         yield f"contig{m}x{n}", run, np.full((m, n), 65536)
         yield f"reversed{m}x{n}", run[:, ::-1].copy(), np.full((m, n), 65536)
+    for kind in KINDS:
+        for n in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024):
+            for m in (37, 300):
+                yield (f"{kind}{m}x{n}", *stream_rows(kind, m, n, rng))
+    yield ("mixed7813x128", *stream_rows("mixed", 7813, 128, rng))
 
 
 # -- timing ---------------------------------------------------------------
@@ -182,6 +188,25 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(launch, per_graph: int = 100, replays: int = 20) -> float:
+    """Mean device time per launch of ``launch`` (a host call that enqueues
+    one kernel on the current stream): ``per_graph`` launches captured in
+    one CUDA graph and replayed, so no host time falls between them (a
+    ctypes call takes longer than the stream kernel)."""
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            launch()
+    return cuda_ms(graph.replay, iters=replays, warmup=2) / per_graph
 
 
 def bound_ms(m: int, n: int, with_dist: bool) -> float:
@@ -221,6 +246,8 @@ def phase_kernels(dev: torch.device) -> float:
     rng = np.random.default_rng(12)
     worst = 0
     cases = 0
+    wide_total = 0
+    kernel.wide_rows(reset=True)
     for name, o_np, s_np in kernel_cases(rng):
         o_np = np.ascontiguousarray(o_np, dtype=np.int64)
         s_np = np.ascontiguousarray(s_np, dtype=np.int64)
@@ -243,9 +270,18 @@ def phase_kernels(dev: torch.device) -> float:
         if not (np.array_equal(rf_k.cpu().numpy(), rf_np)
                 and np.array_equal(dist_k.cpu().numpy(), dist_np)):
             fail(f"{name}: kernel differs from the NumPy oracle")
+        # rows of each launch that took the exact wide branch: every row of
+        # a reversed run beside a far offset, none of repairable collisions
+        wide = kernel.wide_rows(reset=True) // 2
+        wide_total += wide
+        m, n = o_np.shape
+        if name.startswith("outlier") and n >= 16 and wide != m:
+            fail(f"{name}: {wide} of {m} rows took the wide branch, expected all")
+        if name.startswith("collide") and wide:
+            fail(f"{name}: {wide} rows took the wide branch, expected none")
         cases += 1
     log(f"[kernels] {cases} cases bit-equal to the plain version and the "
-        "NumPy oracle")
+        f"NumPy oracle; {wide_total} rows scored by the kernel's wide branch")
     return float(worst)
 
 
@@ -282,35 +318,47 @@ def profiled(fn, iters: int = 50) -> tuple[float, int]:
     return busy * 1e3 / iters, count // iters
 
 
-def raw_launch(o: torch.Tensor, s: torch.Tensor, with_dist: bool):
-    """The kernel's C entry point with no wrapper around it, so that
-    back-to-back launches keep the device busy and CUDA events time the
-    kernel (about a microsecond of ctypes per launch)."""
+def raw_launch(o: torch.Tensor, s: torch.Tensor, with_dist: bool, copies: int = 1):
+    """The kernel's C entry point with no wrapper around it, on the current
+    stream.  With ``copies`` > 1 the launches take turns over that many
+    copies of the inputs, so that a launch finds its inputs evicted from
+    L2 when the copies exceed it."""
 
     lib = kernel.load()
     m, n = o.shape
     rf = torch.empty(m, dtype=torch.int64, device=o.device)
     dist = torch.empty(m, dtype=torch.int64, device=o.device)
-    args = (o.data_ptr(), s.data_ptr(), rf.data_ptr(),
-            dist.data_ptr() if with_dist else None, m, n,
-            torch.cuda.current_stream().cuda_stream)
-    if lib.stream_stats_launch(*args) != 0:
-        fail("raw stream_stats launch failed")
+    bufs = [(o, s)] + [(o.clone(), s.clone()) for _ in range(copies - 1)]
+    args = [(a.data_ptr(), b.data_ptr(), rf.data_ptr(),
+             dist.data_ptr() if with_dist else None, m, n) for a, b in bufs]
+    turn = iter(range(1 << 62))
 
     def launch():
-        lib.stream_stats_launch(*args)
+        if lib.stream_stats_launch(*args[next(turn) % copies],
+                                   torch.cuda.current_stream().cuda_stream) != 0:
+            fail("raw stream_stats launch failed")
 
-    launch.buffers = (o, s, rf, dist)  # alive while the pointers are used
+    launch.buffers = (bufs, rf, dist)  # alive while the pointers are used
     return launch
+
+
+def one_launch_matrix(shards: list[TraceBatch]) -> tuple[np.ndarray, np.ndarray]:
+    """The matrix the sweep's scoring launches once: every shard's padded
+    stream matrix, concatenated (``core.trace._score_shards_kernel``)."""
+
+    mats = [b.padded_stream_matrix() for b in shards]
+    return (np.concatenate([o for o, _, _ in mats]),
+            np.concatenate([s for _, s, _ in mats]))
 
 
 def check_shards(dev: torch.device, shards: list[TraceBatch]) -> int:
     """Both kernels bit-equal to their plain versions on every padded
-    shard matrix the sweep feeds them; returns the largest |error|."""
+    shard matrix of the sweep and on their concatenation, the matrix the
+    main path launches; returns the largest |error|."""
 
     worst = 0
-    for i, b in enumerate(shards):
-        o_np, s_np, _ = b.padded_stream_matrix()
+    mats = [b.padded_stream_matrix()[:2] for b in shards]
+    for i, (o_np, s_np) in enumerate(mats + [one_launch_matrix(shards)]):
         o = torch.from_numpy(o_np).to(dev)
         s = torch.from_numpy(s_np).to(dev)
         rf_p, dist_p = ref.stream_stats_ref(o, s)
@@ -323,18 +371,22 @@ def check_shards(dev: torch.device, shards: list[TraceBatch]) -> int:
             if got.numel():
                 worst = max(worst, int((got - want).abs().max()))
             if not torch.equal(got, want):
-                fail(f"sweep shard {i} {tuple(o.shape)}: {label} differs "
+                what = f"shard {i}" if i < len(shards) else "one-launch matrix"
+                fail(f"sweep {what} {tuple(o.shape)}: {label} differs "
                      "from the plain version")
-    log(f"[kernels] {len(shards)} sweep shard matrices bit-equal to the "
-        "plain version")
+    log(f"[kernels] {len(shards)} sweep shard matrices and their concatenation "
+        f"{tuple(o.shape)} bit-equal to the plain version")
     return worst
 
 
 def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
                    launches: dict) -> list[dict]:
-    """Times at the main path's shape: the largest shard's padded stream
-    matrix of the sweep (one launch per shard), plus the whole trace as
-    one matrix.  ``ms``: CUDA events over back-to-back raw launches;
+    """Times at the main path's shape, the concatenation of the sweep's
+    padded shard matrices (one launch for all shards); beside it the
+    largest shard's matrix (the shape of one launch per shard) and
+    the whole trace as one matrix.  ``ms``: raw launches back to back in a
+    CUDA graph on the same inputs (in L2 after the first); ``ms_cold``: the
+    same with the inputs rotated over copies that fill twice the L2;
     ``plain_ms``/``library_ms``: device time from the profiler;
     ``call_ms``: CUDA events per wrapper call, host overhead included."""
 
@@ -344,8 +396,9 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
     worst = float(max(worst, check_shards(dev, shards)))
     shard = max(shards, key=lambda b: b.num_requests)
     rows = {}
-    for key, b in (("", shard), ("_whole_trace", batch)):
-        o, s, _ = b.padded_stream_matrix()
+    for key, (o, s) in (("", one_launch_matrix(shards)),
+                        ("_largest_shard", shard.padded_stream_matrix()[:2]),
+                        ("_whole_trace", batch.padded_stream_matrix()[:2])):
         rows[key] = (torch.from_numpy(o).to(dev), torch.from_numpy(s).to(dev))
     out = []
     for name, with_dist in (("stream_stats", True), ("stream_rf", False)):
@@ -356,10 +409,14 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
                  "max_abs_err": worst}
         for key, (o, s) in rows.items():
             m, n = o.shape
+            copies = -(-2 * L2_BYTES // (m * n * 16))
             plain_ms, plain_ops = profiled(lambda: plain(o, s))
             lib_ms, _ = profiled(lambda: torch.sort(o, dim=1, stable=True))
             entry.update({
-                f"ms{key}": cuda_ms(raw_launch(o, s, with_dist), iters=1000),
+                f"ms{key}": graph_ms(raw_launch(o, s, with_dist)),
+                # inputs rotated over copies that fill twice the L2
+                f"ms_cold{key}": graph_ms(raw_launch(o, s, with_dist, copies=copies),
+                                          per_graph=max(100, copies)),
                 f"plain_ms{key}": plain_ms,
                 f"bound_ms{key}": bound_ms(m, n, with_dist),
                 f"bound_by{key}": "bytes",
@@ -414,20 +471,62 @@ def phase_golden(dev: torch.device) -> None:
     log(f"[golden] anomaly: 4 keys met, io_seconds {json.dumps(io)}")
 
 
-def phase_sweep(dev: torch.device, batch: TraceBatch) -> dict:
+def first_call_parts(dev: torch.device, prog: FleetProgram, batch: TraceBatch,
+                     t_first: float) -> dict:
+    """The sweep's first call in parts, each timed again on its own (host
+    clock, ending in a synchronise): sharding, scoring, tape building.
+    Scoring runs both ways in turns (per shard, one launch, one launch,
+    per shard): one ``compute_stream_scores`` per shard, as before, and
+    ``_score_shards_kernel`` over all shards, as the main path does."""
+
+    def clock(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    shards = prog.shard(batch)
+    t_shard = clock(lambda: prog.shard(batch))
+    ways = {
+        "per_shard": lambda: [compute_stream_scores(b, prog.stream_len, device=dev)
+                              for b in shards],
+        "one_launch": lambda: _score_shards_kernel(shards, prog.stream_len, dev),
+    }
+    times = {k: [] for k in ways}
+    for k in ("per_shard", "one_launch", "one_launch", "per_shard"):
+        times[k].append(clock(ways[k]))
+    scores = _score_shards_kernel(shards, prog.stream_len, dev)
+    t_tapes = clock(lambda: [ed.build_events(b, sc, stream_len=prog.stream_len,
+                                             hdd=prog.hdd, ssd=prog.ssd, link=prog.link)
+                             for b, sc in zip(shards, scores)])
+    out = {"first_call_s": t_first, "shard_s": t_shard, "tapes_s": t_tapes,
+           **{f"score_{k}_s": v for k, v in times.items()},
+           **{f"score_{k}_share": min(v) / t_first for k, v in times.items()}}
+    log(f"[sweep] first call in parts (s): shard {t_shard:.4f}, tapes {t_tapes:.4f}; "
+        f"scoring per shard {json.dumps(times['per_shard'])} "
+        f"({out['score_per_shard_share']:.3%} of the first call), one launch "
+        f"{json.dumps(times['one_launch'])} ({out['score_one_launch_share']:.3%})")
+    log(f"[sweep] first call parts {json.dumps(out)}")
+    return out
+
+
+def phase_sweep(dev: torch.device, batch: TraceBatch) -> tuple[dict, int]:
     cap = max(batch.total_bytes // 2 // SWEEP_NODES, 64 << 20)
     lanes = SWEEP_NODES * len(SCHEMES)
     prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES,
                         policy="range-offset", ssd_capacity=cap, device=dev)
+    kernel.wide_rows(reset=True)
     ops.reset_launches()
     t0 = time.perf_counter()
     res = prog.run(batch)  # scores every shard on the card, builds tapes
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     launches = dict(ops.launches)
-    if launches["stream_stats"] < SWEEP_NODES:
+    wide = kernel.wide_rows(reset=True)
+    if launches["stream_stats"] != 1:
         fail(f"stream_stats launched {launches['stream_stats']} times on the "
-             f"main path, expected >= {SWEEP_NODES}")
+             "main path, expected exactly 1 (all shards in one launch)")
     steady = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -451,8 +550,11 @@ def phase_sweep(dev: torch.device, batch: TraceBatch) -> dict:
         f"{lanes / t_best:.1f} lanes/s")
     log(f"[sweep] profiled steady run {t_prof:.3f} s: device busy "
         f"{busy:.4f} s ({busy / t_prof:.2%}), {n_ops} device ops")
-    log(f"[sweep] launches on the main path: {json.dumps(launches)}")
+    log(f"[sweep] launches on the main path: {json.dumps(launches)}; rows scored "
+        f"by the stream kernel's wide branch: {wide}")
     log(f"[sweep] total bytes per scheme: {json.dumps(totals)}")
+
+    first_call_parts(dev, prog, batch, t_first)
 
     # the same sweep on the CPU: integer fields exact, clocks to 1e-9
     t0 = time.perf_counter()
@@ -475,7 +577,7 @@ def phase_sweep(dev: torch.device, batch: TraceBatch) -> dict:
                     fail(f"{s}.{f}: card {x!r} vs cpu {y!r}")
     log(f"[sweep] card == cpu: integer fields exact, clocks max rel diff "
         f"{worst:.3g} (cpu run {time.perf_counter() - t0:.1f} s)")
-    return launches
+    return launches, wide
 
 
 # -- model kernels and the serve path ---------------------------------------
@@ -980,9 +1082,10 @@ def main() -> int:
     worst = phase_kernels(dev)
     model_worst = check_model_kernels(dev)
     phase_golden(dev)
-    batch = sweep_trace()
-    launches = phase_sweep(dev, batch)
+    batch = sweep_trace(SWEEP_REQUESTS)
+    launches, wide = phase_sweep(dev, batch)
     kernels = kernel_timings(dev, batch, worst, launches)
+    kernels[0]["main_path_wide_rows"] = wide
     model_launches = {}
     for arch in SERVE_ARCHS:
         res = phase_serve(dev, arch)

@@ -19,7 +19,7 @@ from . import engine_device as ed
 from .device_model import make_storage_model
 from .random_factor import DEFAULT_STREAM_LEN
 from .simulator import SimResult
-from .trace import TraceBatch, TraceItem, compute_stream_scores
+from .trace import TraceBatch, TraceItem, _score_shards_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +74,8 @@ class FleetResult:
 class FleetProgram:
     """One device sweep over the whole shard matrix.
 
-    Every shard is scored once (:func:`compute_stream_scores` through the
-    CUDA kernel, or its plain version on the CPU) and lowered to an event
+    Every shard is scored once, all shards in one launch of the CUDA
+    kernel (or its plain version on the CPU), and lowered to an event
     tape; tapes are scheme-independent, so one lane per ``scheme x node``
     replays them all in a single
     :func:`~repro_torch.core.engine_device.replay_lanes` call.  ``device=None`` runs on the CUDA card and raises without one;
@@ -137,15 +137,11 @@ class FleetProgram:
         if self._tape_cache is not None and self._tape_cache[0] is batch:
             return self._tape_cache[1], self._tape_cache[2]
         shards = self.shard(batch)
+        scores = _score_shards_kernel(shards, self.stream_len, self.device)
         tapes = [
-            ed.build_events(
-                shard,
-                compute_stream_scores(shard, self.stream_len,
-                                      backend="kernel", device=self.device),
-                stream_len=self.stream_len,
-                hdd=self.hdd, ssd=self.ssd, link=self.link,
-            )
-            for shard in shards
+            ed.build_events(shard, sc, stream_len=self.stream_len,
+                            hdd=self.hdd, ssd=self.ssd, link=self.link)
+            for shard, sc in zip(shards, scores)
         ]
         per_app = [ed.per_app_bytes(shard) for shard in shards]
         self._tape_cache = (batch, tapes, per_app)

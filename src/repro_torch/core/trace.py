@@ -14,7 +14,8 @@
 Streams are blocks of ``stream_len`` requests in arrival order; gaps do not
 flush a partial block.  The trailing partial stream is padded into a
 score-neutral row (:meth:`TraceBatch.padded_stream_matrix`) so that one
-launch scores every stream.
+launch scores every stream; a fleet's shards stack their matrices so that
+one launch scores every shard (``FleetProgram``).
 """
 
 from __future__ import annotations
@@ -218,21 +219,31 @@ class TraceBatch:
         true length.
         """
 
-        offs2d, szs2d, tail_offs, tail_szs = self.stream_matrix(stream_len)
-        lens = np.full(offs2d.shape[0], stream_len, dtype=np.int64)
-        t = tail_offs.size
+        rows = -(-self.num_requests // stream_len)
+        offs = np.empty((rows, stream_len), dtype=np.int64)
+        szs = np.empty((rows, stream_len), dtype=np.int64)
+        return offs, szs, self._fill_padded_streams(stream_len, offs, szs)
+
+    def _fill_padded_streams(self, stream_len: int, offs: np.ndarray,
+                             szs: np.ndarray) -> np.ndarray:
+        """Write :meth:`padded_stream_matrix`'s rows into ``offs`` and
+        ``szs`` (each ``(S, stream_len)``, e.g. slices of a larger matrix);
+        returns the true lengths."""
+
+        m, t = divmod(self.num_requests, stream_len)
+        full = m * stream_len
+        offs[:m] = self.offsets[:full].reshape(m, stream_len)
+        szs[:m] = self.sizes[:full].reshape(m, stream_len)
+        lens = np.full(m + (t > 0), stream_len, dtype=np.int64)
         if t:
+            tail_offs, tail_szs = self.offsets[full:], self.sizes[full:]
             # sorted-last real request = LAST occurrence of the max offset
             j = t - 1 - int(np.argmax(tail_offs[::-1]))
-            pad_off = int(tail_offs[j]) + int(tail_szs[j])
-            row_o = np.concatenate(
-                [tail_offs, np.full(stream_len - t, pad_off, dtype=np.int64)])
-            row_s = np.concatenate(
-                [tail_szs, np.zeros(stream_len - t, dtype=np.int64)])
-            offs2d = np.vstack([offs2d, row_o[None, :]])
-            szs2d = np.vstack([szs2d, row_s[None, :]])
-            lens = np.append(lens, t)
-        return offs2d, szs2d, lens
+            offs[m, :t], szs[m, :t] = tail_offs, tail_szs
+            offs[m, t:] = np.int64(int(tail_offs[j]) + int(tail_szs[j]))
+            szs[m, t:] = 0
+            lens[m] = t
+        return lens
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -264,19 +275,48 @@ def _score_numpy(batch: TraceBatch, stream_len: int):
     return rf, pct, dist
 
 
-def _score_kernel(batch: TraceBatch, stream_len: int, device: torch.device):
+def _score_shards_kernel(
+    batches: Sequence[TraceBatch], stream_len: int, device: torch.device
+) -> list[StreamScores]:
+    """Score every stream of several traces (a fleet's shards) in one
+    kernel launch: their padded stream matrices are stacked into one
+    ``(sum S, stream_len)`` matrix, copied to ``device`` once, scored, and
+    read back once.  Rows are independent and the padding is
+    score-neutral, so each trace's scores equal scoring it alone."""
+
     from ..kernels.stream_rf.ops import stream_stats_op
 
-    offs_p, szs_p, lens = batch.padded_stream_matrix(stream_len)
-    if not offs_p.shape[0]:
-        z = np.zeros(0, dtype=np.int64)
-        return z, np.zeros(0, dtype=np.float64), z.copy()
-    rf, _, dist = stream_stats_op(torch.from_numpy(offs_p).to(device),
-                                  torch.from_numpy(szs_p).to(device))
-    rf = rf.cpu().numpy()
-    # the true length divides on the host in float64, as the oracle does
-    pct = rf / np.maximum(lens - 1, 1)
-    return rf, pct, dist.cpu().numpy()
+    rows = np.cumsum([0] + [-(-b.num_requests // stream_len) for b in batches])
+    both = np.empty((2, rows[-1], stream_len), dtype=np.int64)  # offsets, sizes
+    lens = [b._fill_padded_streams(stream_len, both[0, lo:hi], both[1, lo:hi])
+            for b, lo, hi in zip(batches, rows[:-1], rows[1:])]
+    rf = np.zeros(0, dtype=np.int64)
+    dist = rf
+    if rows[-1]:
+        both = torch.from_numpy(both).to(device)  # one copy
+        rf_d, _, dist_d = stream_stats_op(both[0], both[1])
+        rf, dist = torch.stack([rf_d, dist_d]).cpu().numpy()  # one readback
+    out = []
+    for b, n, lo, hi in zip(batches, lens, rows[:-1], rows[1:]):
+        nbytes, osum = b.stream_sums(stream_len)
+        # the true length divides on the host in float64, as the oracle does
+        pct = rf[lo:hi] / np.maximum(n - 1, 1)
+        out.append(_stream_scores(rf[lo:hi], pct, dist[lo:hi], nbytes, osum,
+                                  stream_len, "kernel"))
+    return out
+
+
+def _stream_scores(rf, pct, dist, nbytes, osum, stream_len: int,
+                   backend: str) -> StreamScores:
+    return StreamScores(
+        rf_sum=np.asarray(rf, dtype=np.int64),
+        percentage=np.asarray(pct, dtype=np.float64),
+        seek_distance=np.asarray(dist, dtype=np.int64),
+        nbytes=np.asarray(nbytes, dtype=np.int64),
+        offset_sum=np.asarray(osum, dtype=np.int64),
+        stream_len=stream_len,
+        backend=backend,
+    )
 
 
 def compute_stream_scores(
@@ -297,17 +337,8 @@ def compute_stream_scores(
     if backend not in SCORE_BACKENDS:
         raise ValueError(f"backend must be one of {SCORE_BACKENDS}, got {backend!r}")
     batch = trace if isinstance(trace, TraceBatch) else TraceBatch.from_items(trace)
+    if backend == "kernel":
+        return _score_shards_kernel([batch], stream_len, resolve_device(device))[0]
     nbytes, osum = batch.stream_sums(stream_len)
-    if backend == "numpy":
-        rf, pct, dist = _score_numpy(batch, stream_len)
-    else:
-        rf, pct, dist = _score_kernel(batch, stream_len, resolve_device(device))
-    return StreamScores(
-        rf_sum=np.asarray(rf, dtype=np.int64),
-        percentage=np.asarray(pct, dtype=np.float64),
-        seek_distance=np.asarray(dist, dtype=np.int64),
-        nbytes=np.asarray(nbytes, dtype=np.int64),
-        offset_sum=np.asarray(osum, dtype=np.int64),
-        stream_len=stream_len,
-        backend=backend,
-    )
+    rf, pct, dist = _score_numpy(batch, stream_len)
+    return _stream_scores(rf, pct, dist, nbytes, osum, stream_len, backend)

@@ -19,8 +19,23 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    fn = lib.stream_stats_wide_rows
+    fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary(SOURCE, _bind)
 build = LIBRARY.build
 load = LIBRARY.load
+
+
+def wide_rows(reset: bool = False) -> int:
+    """Rows the kernel has scored by its exact wide branch (rows whose
+    32-bit bucket keys came out of order) since the last reset, summed over
+    every launch on the card."""
+
+    out = ctypes.c_ulonglong(0)
+    err = load().stream_stats_wide_rows(ctypes.byref(out), int(reset))
+    if err != 0:
+        raise RuntimeError(f"stream_rf wide-row count failed: cudaError {err}")
+    return out.value

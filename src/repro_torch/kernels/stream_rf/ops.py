@@ -50,9 +50,17 @@ def _checked(offsets: torch.Tensor, sizes) -> tuple[torch.Tensor, torch.Tensor]:
     return offsets, sizes.expand(offsets.shape).contiguous()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if its data is not 16-byte aligned (the
+    kernel copies rows in 16-byte chunks; fresh allocations are aligned)."""
+
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(offs: torch.Tensor, szs: torch.Tensor, with_dist: bool):
     from .kernel import load  # builds with nvcc on first use
 
+    offs, szs = _aligned(offs), _aligned(szs)
     m, n = offs.shape
     rf = torch.empty(m, dtype=torch.int64, device=offs.device)
     dist = torch.empty(m, dtype=torch.int64, device=offs.device) if with_dist else None

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..device import resolve_device
 from . import mamba, transformer
 from .params import ModelParams, leaf_name
 
@@ -38,10 +39,12 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict, device="cpu") -> ModelParams:
+def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> ModelParams:
     """The reference's parameter tree (arrays, per-layer leaves stacked on
-    L) as the port's parameters, bit for bit, in the tree's dtypes."""
+    L) as the port's parameters, bit for bit, in the tree's dtypes, on
+    ``device`` (``None``: the CUDA card; raises without one)."""
 
+    device = resolve_device(device)
     tensors = {k: _tensor(v) for k, v in tree.items() if k != "layers"}
     tensors.update({k: _tensor(v) for k, v in tree["layers"].items()})
     mod = _FAMILY_MODULES[cfg.family]

@@ -88,3 +88,20 @@ def trace_fingerprint(batch: TraceBatch) -> dict:
         "total_bytes": int(batch.total_bytes),
         "sha256": h.hexdigest(),
     }
+
+
+def sweep_trace(n: int = 1_000_000, seed: int = 0) -> TraceBatch:
+    """The fleet sweep's trace (the reference's replay benchmark family):
+    ``n`` requests of 64 KiB, offsets uniform in [0, 2^38), 16 files, 8
+    apps, one 30 s compute gap at mid-trace."""
+
+    rng = np.random.default_rng(seed)
+    return TraceBatch(
+        offsets=rng.integers(0, 1 << 38, size=n).astype(np.int64),
+        sizes=np.full(n, 64 << 10, dtype=np.int64),
+        file_ids=rng.integers(0, 16, size=n).astype(np.int64),
+        app_ids=rng.integers(0, 8, size=n).astype(np.int64),
+        times=np.zeros(n),
+        gap_positions=np.asarray([n // 2], dtype=np.int64),
+        gap_seconds=np.asarray([30.0]),
+    )

@@ -4,11 +4,13 @@ points refuse to fall back to the CPU quietly when no CUDA card is
 present."""
 
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +19,7 @@ from repro_torch.core import FleetProgram, compute_stream_scores, replay_lanes, 
 from repro_torch.core import engine_device as ed
 from repro_torch.launch.serve import serve
 from repro_torch.models import get_model
+from repro_torch.models.convert import params_from_jax
 from repro_torch.testing.traces import golden_trace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -101,6 +104,33 @@ def test_model_entry_points_need_cuda_by_default(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve(cfg, batch=1, prompt_len=4, gen=1)
     assert get_model(cfg, device="cpu").device.type == "cpu"
+
+
+def _reference_shaped_tree(params) -> dict:
+    """A parameter tree in the reference's form (NumPy leaves, per-layer
+    leaves stacked on L), made from the port's own parameters."""
+
+    tree: dict = {"layers": {}}
+    for name, t in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            tree["layers"].setdefault(parts[-1], {})[int(parts[1])] = t.detach().numpy()
+        else:
+            tree[parts[-1]] = t.detach().numpy()
+    tree["layers"] = {k: np.stack([v[i] for i in sorted(v)]) for k, v in tree["layers"].items()}
+    return tree
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b"])
+def test_params_from_jax_needs_cuda_by_default(no_cuda, arch):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")  # NumPy has no bf16
+    params = get_model(cfg, device="cpu").init_params(0)
+    tree = _reference_shaped_tree(params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax(cfg, tree)
+    back = params_from_jax(cfg, tree, device="cpu")
+    for (name, a), (_, b) in zip(params.named_parameters(), back.named_parameters()):
+        assert b.device.type == "cpu" and torch.equal(a, b), name
 
 
 def test_chip_smoke_refuses_without_cuda():

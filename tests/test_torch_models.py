@@ -47,7 +47,7 @@ def setup(arch: str, dtype: str, impl: str):
     jm = jax_get_model(jcfg)
     jparams = jm.init_params(jax.random.PRNGKey(0))
     tcfg = config_from_jax(jcfg)
-    tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams))
+    tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, jm, jparams, tcfg, get_model(tcfg, "cpu"), tparams
 
 

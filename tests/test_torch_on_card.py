@@ -16,11 +16,19 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.random_factor import stream_stats_batch_np
+from repro_torch.core.trace import _score_shards_kernel
+from repro_torch.distributed.sharding import assign_nodes
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ref as ssm_ref
+from repro_torch.kernels.stream_rf import kernel as rf_kernel
+from repro_torch.kernels.stream_rf import ops as rf_ops
+from repro_torch.kernels.stream_rf import ref as rf_ref
 from repro_torch.launch.serve import serve
+from repro_torch.testing import stream_rows
+from repro_torch.testing.traces import sweep_trace
 
 pytestmark = pytest.mark.cuda
 
@@ -178,3 +186,78 @@ def test_serve_smoke_config_goes_through_the_kernel(card, arch):
                   batch=2, prompt_len=16, gen=4, seed=0, device=card)
     torch.testing.assert_close(res["prefill_logits"], plain["prefill_logits"],
                                atol=0.08, rtol=0.08)
+
+
+# -- the stream kernel ------------------------------------------------------
+
+
+def _stream_case(card, offs, szs) -> int:
+    """Both stream kernels bit-equal to the plain version and the NumPy
+    oracle; each wrapper call is one launch.  Returns the rows of one launch
+    that took the kernel's exact wide branch."""
+
+    o, s = torch.from_numpy(offs).to(card), torch.from_numpy(szs).to(card)
+    rf_kernel.wide_rows(reset=True)
+    rf_ops.reset_launches()
+    rf, _, dist = rf_ops.stream_stats_op(o, s)
+    rf_only = rf_ops.stream_rf_op(o, s)
+    assert rf_ops.launches == {"stream_stats": 1, "stream_rf": 1}
+    rf_p, dist_p = rf_ref.stream_stats_ref(o, s)
+    rf_np, _, dist_np = stream_stats_batch_np(offs, szs)
+    assert torch.equal(rf, rf_p) and torch.equal(dist, dist_p)
+    assert torch.equal(rf_only, rf_p)
+    assert np.array_equal(rf.cpu().numpy(), rf_np)
+    assert np.array_equal(dist.cpu().numpy(), dist_np)
+    return rf_kernel.wide_rows(reset=True) // 2
+
+
+@pytest.mark.parametrize("kind", stream_rows.KINDS)
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024])
+def test_stream_kernel_row_kinds(card, n, kind):
+    """Every width the kernel takes, on ties of differing sizes, int64
+    wrap, negative and extreme offsets, bucket collisions, rows that take
+    the wide branch and both kinds in one launch; 37 and 300 rows (sentinel
+    rows in the last warp)."""
+
+    rng = np.random.default_rng(n + 1000 * stream_rows.KINDS.index(kind))
+    for m in (37, 300):
+        wide = _stream_case(card, *stream_rows.stream_rows(kind, m, n, rng))
+        if kind == "outlier" and n >= 16:
+            assert wide == m  # a reversed run in one bucket: the wide branch
+        if kind in ("random40", "ties", "contiguous", "collide"):
+            assert wide == 0  # collisions are put right in place
+
+
+def test_stream_kernel_on_the_sweeps_one_launch_matrix(card):
+    """The matrix the fleet sweep launches: every shard's padded streams,
+    concatenated, and the per-shard scores it gives equal the CPU's."""
+
+    batch = sweep_trace()
+    nodes = 64
+    shards = batch.shard(assign_nodes("range-offset", batch.offsets, batch.file_ids,
+                                      batch.app_ids, nodes), nodes)
+    offs = np.concatenate([s.padded_stream_matrix()[0] for s in shards])
+    szs = np.concatenate([s.padded_stream_matrix()[1] for s in shards])
+    _stream_case(card, offs, szs)
+    rf_ops.reset_launches()
+    got = _score_shards_kernel(shards, 128, card)
+    assert rf_ops.launches["stream_stats"] == 1
+    want = _score_shards_kernel(shards, 128, torch.device("cpu"))
+    for g, w in zip(got, want):
+        for f in ("rf_sum", "percentage", "seek_distance", "nbytes", "offset_sum"):
+            assert np.array_equal(getattr(g, f), getattr(w, f)), f
+
+
+def test_stream_kernel_on_views_8_bytes_off(card):
+    """Inputs whose data is not 16-byte aligned (the kernel's copy unit)."""
+
+    offs, szs = stream_rows.stream_rows("random40", 37, 128, np.random.default_rng(5))
+    flat_o = torch.zeros(offs.size + 1, dtype=torch.int64, device=card)
+    flat_s = torch.zeros(szs.size + 1, dtype=torch.int64, device=card)
+    o = flat_o[1:].view(offs.shape).copy_(torch.from_numpy(offs))
+    s = flat_s[1:].view(szs.shape).copy_(torch.from_numpy(szs))
+    assert o.data_ptr() % 16 == 8
+    rf, _, dist = rf_ops.stream_stats_op(o, s)
+    rf_np, _, dist_np = stream_stats_batch_np(offs, szs)
+    assert np.array_equal(rf.cpu().numpy(), rf_np)
+    assert np.array_equal(dist.cpu().numpy(), dist_np)

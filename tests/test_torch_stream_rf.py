@@ -22,6 +22,7 @@ from repro.kernels.stream_rf.ref import threshold_quantile_ref as jnp_quantile
 from repro_torch.core.random_factor import stream_stats_batch
 from repro_torch.kernels import build
 from repro_torch.kernels.stream_rf import kernel, ops, ref
+from repro_torch.testing import stream_rows
 
 MS = (1, 3, 8, 37, 300)
 NS = (8, 64, 128)
@@ -135,6 +136,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(offsets, sizes, exc):
         ops.stream_stats_op(offsets, sizes)
 
 
+def test_unaligned_inputs_are_copied_for_the_kernel():
+    """The kernel reads rows in 16-byte chunks; a view 8 bytes off gets an
+    aligned copy, an aligned tensor goes as it is."""
+
+    flat = torch.arange(4 * 8 + 1, dtype=torch.int64)
+    view = flat[1:].view(4, 8)
+    assert view.data_ptr() % 16 == 8
+    copy = ops._aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    aligned = torch.zeros(4, 8, dtype=torch.int64)
+    assert ops._aligned(aligned) is aligned
+
+
 def test_empty_matrix():
     rf, pct, dist = ops.stream_stats_op(torch.zeros(0, 128, dtype=torch.int64),
                                         torch.zeros(0, 128, dtype=torch.int64))
@@ -166,3 +180,134 @@ def test_threshold_quantile_equals_reference(w):
     got = ref.threshold_quantile_ref(torch.from_numpy(pct).float(),
                                      torch.from_numpy(avg).float())
     assert np.array_equal(got.numpy(), want)
+
+
+# -- the CUDA kernel's algorithm, emulated in NumPy -----------------------
+
+U64 = np.uint64
+SIGN = U64(1 << 63)
+
+
+def _kernel_layout(n: int) -> tuple[int, int]:
+    """``(log2 W, log2 K)`` as ``stream_stats_launch`` dispatches them: W = N
+    positions, K per thread (N up to 8, then 8 up to N = 256, 16 at 512 and
+    32 at 1024)."""
+
+    log_w = n.bit_length() - 1
+    return log_w, {512: 4, 1024: 5}.get(n, min(log_w, 3))
+
+
+def _network(log_w: int):
+    """The comparator stages of the one-way bitonic sort: ``(m, lower)``
+    per stage, partner ``i ^ m``, ``lower[i]`` keeps the smaller key."""
+
+    i = np.arange(1 << log_w)
+    for lk in range(1, log_w + 1):
+        for lj in range(lk - 1, -1, -1):
+            m = (1 << lk) - 1 if lj == lk - 1 else 1 << lj
+            yield i ^ m, i < (i ^ m)
+
+
+FIX_ROUNDS = 2  # kFixRounds in csrc/stream_rf.cu
+
+
+def _before(ao, ai, bo, bi):
+    return (ao < bo) | ((ao == bo) & (ai < bi))
+
+
+def _wide_network(o: np.ndarray, ix: np.ndarray, log_w: int):
+    """The exact branch: the network on (offset, index) keys."""
+
+    for partner, lower in _network(log_w):
+        po, pi = o[:, partner], ix[:, partner]
+        take = lower == _before(po, pi, o, ix)
+        o, ix = np.where(take, po, o), np.where(take, pi, ix)
+    return o, ix
+
+
+def _transposition_round(o: np.ndarray, ix: np.ndarray):
+    """Positions (p, p + 1) swap when out of order: even p, then odd p."""
+
+    for first in (0, 1):
+        a = np.arange(first, o.shape[1] - 1, 2)
+        swap = _before(o[:, a + 1], ix[:, a + 1], o[:, a], ix[:, a])
+        for arr in (o, ix):
+            lo, hi = arr[:, a].copy(), arr[:, a + 1].copy()
+            arr[:, a], arr[:, a + 1] = np.where(swap, hi, lo), np.where(swap, lo, hi)
+
+
+def _emulate_kernel(offs: np.ndarray, szs: np.ndarray):
+    """rf, dist and whether each row's warp kept the fast branch, as the
+    kernel computes them: sentinel rows of zeros up to a whole warp; the
+    32-bit key ((off - min) >> shift << log2 W) | index with the shift that
+    makes it fit; the network on positions ``t * K + r`` loaded with element
+    ``r * T + t``; offsets read back by index; up to ``FIX_ROUNDS`` rounds
+    of odd-even transposition while any row of the warp is out of order,
+    then the exact network for that warp."""
+
+    m, n = offs.shape
+    log_w, log_k = _kernel_layout(n)
+    k = 1 << log_k
+    t_per_row = n // k
+    g = 32 // t_per_row
+    rows = -(-m // g) * g
+    o = np.zeros((rows, n), np.int64)
+    s = np.zeros((rows, n), np.int64)
+    o[:m], s[:m] = offs, szs
+    lo, hi = o.min(1, keepdims=True), o.max(1, keepdims=True)
+    span = (hi.view(U64) - lo.view(U64))[:, 0]
+    width = np.array([int(x).bit_length() for x in span])
+    shift = np.maximum(width - (32 - log_w), 0).astype(U64)[:, None]
+
+    pos = np.arange(n)
+    elem = np.broadcast_to((pos % k) * t_per_row + pos // k, (rows, n))
+    rel = np.take_along_axis(o, elem, 1).view(U64) - lo.view(U64)
+    key = (((rel >> shift) << U64(log_w)) | elem.astype(U64))
+    assert np.all(key < U64(1 << 32))
+    key = key.astype(np.uint32)
+    for partner, lower in _network(log_w):
+        a, b = key, key[:, partner]
+        key = np.where(lower, np.minimum(a, b), np.maximum(a, b))
+    ix = (key & np.uint32(n - 1)).astype(np.int64)
+    off = np.take_along_axis(o, ix, 1)
+    for rnd in range(FIX_ROUNDS + 1):
+        ordered = _before(off[:, :-1], ix[:, :-1], off[:, 1:], ix[:, 1:]).all(1)
+        warp_ok = ordered.reshape(-1, g).all(1).repeat(g)
+        if rnd == FIX_ROUNDS or warp_ok.all():
+            break
+        _transposition_round(off, ix)  # a no-op on rows already in order
+    fast = warp_ok
+    w_off, w_ix = _wide_network(np.take_along_axis(o, elem, 1), elem.copy(), log_w)
+    off = np.where(fast[:, None], off, w_off)
+    ix = np.where(fast[:, None], ix, w_ix)
+    size = np.take_along_axis(s, ix, 1).view(U64)
+    d = off.view(U64)[:, 1:] - off.view(U64)[:, :-1] - size[:, :-1]
+    rf = (d != 0).sum(1).astype(np.int64)
+    dist = np.where(d.view(np.int64) < 0, U64(0) - d, d).sum(1, dtype=U64).view(np.int64)
+    return rf[:m], dist[:m], fast[:m]
+
+
+EMU_NS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+@pytest.mark.parametrize("kind", stream_rows.KINDS)
+@pytest.mark.parametrize("n", EMU_NS)
+def test_kernel_algorithm_emulated_equals_numpy_oracle(n, kind):
+    rng = np.random.default_rng(n * 31 + stream_rows.KINDS.index(kind))
+    m = 37  # not a whole warp of rows at any N: sentinel rows are sorted too
+    offs, szs = stream_rows.stream_rows(kind, m, n, rng)
+    rf, dist, fast = _emulate_kernel(offs, szs)
+    rf_np, _, dist_np = stream_stats_batch_np(offs, szs)
+    assert np.array_equal(rf, rf_np)
+    assert np.array_equal(dist, dist_np)
+    if kind in ("ties", "contiguous", "reversed", "near-min", "near-max", "collide"):
+        # spans that need no shift, runs wider than a bucket, or pairs that
+        # one transposition round puts right
+        assert fast.all()
+    if kind == "outlier" and n >= 16:
+        # a reversed run in one bucket: more than FIX_ROUNDS rounds to repair
+        assert not fast.any()
+    if kind == "mixed" and n >= 16:
+        assert not fast.all()
+    if kind == "mixed" and n >= 128:  # warps of 4 rows or fewer: some keep the fast branch
+        assert fast.any()

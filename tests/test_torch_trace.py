@@ -16,6 +16,7 @@ from repro.core import compute_stream_scores as ref_scores
 from repro.distributed.sharding import assign_nodes as ref_assign
 from repro.testing.traces import golden_trace as ref_golden_trace
 from repro_torch.core import TraceBatch, compute_stream_scores
+from repro_torch.core.trace import _score_shards_kernel
 from repro_torch.distributed.sharding import TRACE_POLICIES, assign_nodes
 
 COLUMNS = ("offsets", "sizes", "file_ids", "app_ids", "times",
@@ -142,3 +143,88 @@ def test_bad_backend_and_columns_raise():
     with pytest.raises(ValueError):
         TraceBatch.from_numpy(offsets=[1], sizes=[1], file_ids=[0],
                               app_ids=[0], colour=[1])
+
+
+# -- one launch for all shards -------------------------------------------
+
+SHARD_CASES = {  # trace, nodes: full streams, tail-only shards, empty shards
+    "bench-2^38": ("bench-2^38", 7),
+    "ragged-37": ("ragged-37", 5),
+    "ragged-1": ("ragged-1", 5),  # every shard is a tail (26 requests)
+    "short": ("short", 8),  # 3 requests: most shards are empty
+}
+
+
+def _shard_case(traces, name):
+    trace, nodes = SHARD_CASES[name]
+    ref = traces[trace] if trace in traces else _ragged(3, 9)
+    return _port(ref), nodes
+
+
+@pytest.mark.parametrize("policy", sorted(TRACE_POLICIES))
+@pytest.mark.parametrize("name", SHARD_CASES)
+def test_one_launch_equals_scoring_each_shard(traces, name, policy):
+    batch, nodes = _shard_case(traces, name)
+    shards = batch.shard(assign_nodes(policy, batch.offsets, batch.file_ids,
+                                      batch.app_ids, nodes), nodes)
+    shards.append(batch.select(np.zeros(0, dtype=np.int64)))  # an empty shard
+    got = _score_shards_kernel(shards, 128, torch.device("cpu"))
+    assert len(got) == len(shards)
+    for shard, g in zip(shards, got):
+        want = compute_stream_scores(shard, device="cpu")
+        oracle = compute_stream_scores(shard, backend="numpy")
+        for f in SCORE_FIELDS:
+            a = getattr(g, f)
+            assert a.dtype == getattr(want, f).dtype
+            assert np.array_equal(a, getattr(want, f)), f
+            assert np.array_equal(a, getattr(oracle, f)), f
+        assert g.backend == "kernel" and g.stream_len == 128
+
+
+@pytest.mark.parametrize("stream_len", [2, 32, 256])
+def test_one_launch_mixed_lengths_and_no_rows(stream_len):
+    """Shards with full streams, a tail alone, a trace shorter than one
+    stream, and none at all; also the call with no rows anywhere."""
+
+    port = _port(_ragged(5 * stream_len + 3, 11))
+    shards = [port, port.select(np.arange(stream_len - 1)),
+              port.select(np.zeros(0, dtype=np.int64)),
+              port.select(np.arange(1, 2 * stream_len + 1))]
+    got = _score_shards_kernel(shards, stream_len, torch.device("cpu"))
+    for shard, g in zip(shards, got):
+        want = compute_stream_scores(shard, stream_len, backend="numpy")
+        for f in SCORE_FIELDS:
+            assert np.array_equal(getattr(g, f), getattr(want, f)), f
+    empty = _score_shards_kernel(shards[2:3] * 2, stream_len, torch.device("cpu"))
+    assert [g.rf_sum.shape for g in empty] == [(0,), (0,)]
+
+
+def test_fleet_program_scores_all_shards_in_one_call(monkeypatch):
+    """The first sweep scores every shard with one ``stream_stats_op``
+    call; its tapes equal tapes from scoring each shard alone."""
+
+    from repro_torch.core import FleetProgram
+    from repro_torch.core import engine_device as ed
+    from repro_torch.kernels.stream_rf import ops
+
+    calls = []
+    real = ops.stream_stats_op
+
+    def counted(offsets, sizes):
+        calls.append(tuple(offsets.shape))
+        return real(offsets, sizes)
+
+    monkeypatch.setattr(ops, "stream_stats_op", counted)
+    batch = _port(ref_golden_trace("mixed-burst"))
+    prog = FleetProgram(num_nodes=5, policy="range-offset", device="cpu")
+    shards = prog.shard(batch)
+    prog.run(batch)
+    rows = sum(s.padded_stream_matrix()[0].shape[0] for s in shards)
+    assert calls == [(rows, 128)]
+    prog.run(batch)  # tapes are cached: no second scoring
+    assert len(calls) == 1
+    for shard, tape in zip(shards, prog._tape_cache[1]):
+        alone = ed.build_events(shard, compute_stream_scores(shard, backend="numpy"))
+        assert tape.keys() == alone.keys()
+        for k in tape:
+            assert np.array_equal(tape[k], alone[k]), k

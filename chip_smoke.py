@@ -13,7 +13,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    differing sizes at every N from 2 to 1024, offsets up to 2^40, int64
    wrap, negative offsets, rows at INT64_MIN and INT64_MAX, the whole
    int64 range, which takes the kernel's wide branch, and packed and wide
-   rows in one launch); hold ``flash_attention`` and
+   rows in one launch), then at widths that are not powers of two
+   (3, 17, 96, 1000: the padded branch) and above 1024 (2048, 4096, 8192:
+   the long-row kernel), with and without per-row true lengths, and check
+   that widths above the limit are refused; hold ``flash_attention`` and
    ``ssm_scan`` against their plain versions in f32 and bf16 over the
    reference tests' shapes, GQA/MQA, causal or not, Sq != Sk, ragged
    lengths and the serve slice's own shapes, at the reference tests'
@@ -31,11 +34,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    conserved, and the card's result must match the same sweep run on the
    CPU; the first call is timed again in parts, scoring per shard and in
    one launch taking turns;
+   ftl     — the same sweep with ``ssd="ftl"`` (first call, best of 3
+   steady calls, device busy share, GC relocations and write
+   amplification): bytes conserved, card equal to the CPU, and within
+   ``DEVICE_TOLERANCES`` of ``FleetSimulator(engine="batched",
+   ssd="ftl")`` on a trace cut to 100,000 requests (the host engine
+   charges the FTL one request at a time);
+   host    — ``FleetSimulator(engine="batched")`` over the sweep's 64 nodes
+   x 4 schemes (scoring on the card, one launch a run) within
+   ``DEVICE_TOLERANCES`` of the sweep; ``run_schemes`` with the device and
+   the batched engine on both golden workloads (card equal to the CPU);
+   the 16 golden fixtures replayed exactly by the batched engine;
+   any-len — the sweep at ``stream_len`` 96 and 2048, one launch each,
+   equal to ``score_backend="numpy"``;
 5. timings — both stream kernels held bit-equal to their plain versions on
-   every padded shard matrix the sweep feeds them and on their
-   concatenation, then timed at that one-launch shape, at the largest
-   shard's and at the whole trace's, beside their byte bound, their plain
-   versions and ``torch.sort``;
+   every shard matrix the sweep feeds them and on their concatenation,
+   then timed at that one-launch shape (as the main path launches it, and
+   with the rows' true lengths), at the largest shard's, at
+   the whole trace's and at the sweep's one-launch shape at
+   ``stream_len=96``, beside their byte bound, their plain versions and
+   ``torch.sort``; and the long-row kernel at the whole trace at
+   ``stream_len=2048``, a row of its own;
 6. serve   — the model main path: ``serve`` of qwen3-1.7b and of
    falcon-mamba-7b at full width and depth in bf16, batch 4, prompt 2048,
    32 greedy tokens, with launch counts reset just before and read just
@@ -78,6 +97,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import FleetProgram, TraceBatch, compute_stream_scores  # noqa: E402
+from repro_torch.core import FleetResult, FleetSimulator, run_schemes  # noqa: E402
 from repro_torch.core import simulate_device  # noqa: E402
 from repro_torch.core import engine_device as ed  # noqa: E402
 from repro_torch.core.trace import _score_shards_kernel  # noqa: E402
@@ -285,6 +305,75 @@ def phase_kernels(dev: torch.device) -> float:
     return float(worst)
 
 
+ANY_WIDTHS = (3, 17, 96, 1000)  # not powers of two: the padded branch
+LONG_WIDTHS = (2048, 4096, 8192)  # the long-row kernel, one block a row
+
+
+def _oracle_rows(offs: np.ndarray, szs: np.ndarray, lens) -> tuple[np.ndarray, np.ndarray]:
+    """The NumPy oracle on each row's first ``lens[i]`` requests."""
+
+    if lens is None:
+        rf, _, dist = stream_stats_batch_np(offs, szs)
+        return rf, dist
+    got = [stream_stats_batch_np(offs[i:i + 1, :k], szs[i:i + 1, :k])
+           for i, k in enumerate(lens)]
+    return (np.array([g[0][0] for g in got], dtype=np.int64),
+            np.array([g[2][0] for g in got], dtype=np.int64))
+
+
+def phase_any_width(dev: torch.device) -> float:
+    """Widths that are not powers of two and widths above 1024, on every
+    row kind, with and without per-row true lengths: both kernels bit-equal
+    to the plain version and to the NumPy oracle; the long-row kernel
+    scores exactly the rows above 1024; widths above the limit raise.
+    Returns the largest |error|."""
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    worst, cases, long_total = 0, 0, 0
+    for kind in KINDS:
+        for n in ANY_WIDTHS + LONG_WIDTHS:
+            for m in ((37, 300) if n <= 1024 else (5, 37)):
+                offs, szs = stream_rows(kind, m, n, rng)
+                lens = rng.integers(0, n + 1, size=m)
+                lens[:3] = (0, 1, n)
+                o, s = torch.from_numpy(offs).to(dev), torch.from_numpy(szs).to(dev)
+                for ln_np in (None, lens):
+                    ln = None if ln_np is None else torch.from_numpy(ln_np).to(dev)
+                    kernel.long_rows(reset=True)
+                    rf_k, _, dist_k = ops.stream_stats_op(o, s, ln)
+                    rf_only = ops.stream_rf_op(o, s, ln)
+                    rf_p, dist_p = ref.stream_stats_ref(o, s, ln)
+                    torch.cuda.synchronize()
+                    for label, got, want in (("rf", rf_k, rf_p), ("dist", dist_k, dist_p),
+                                             ("stream_rf", rf_only, rf_p)):
+                        worst = max(worst, int((got - want).abs().max()))
+                        if not torch.equal(got, want):
+                            fail(f"{kind} ({m}, {n}) lengths={ln_np is not None}: "
+                                 f"{label} differs from the plain version")
+                    rf_np, dist_np = _oracle_rows(offs, szs, ln_np)
+                    if not (np.array_equal(rf_k.cpu().numpy(), rf_np)
+                            and np.array_equal(dist_k.cpu().numpy(), dist_np)):
+                        fail(f"{kind} ({m}, {n}): kernel differs from the NumPy oracle")
+                    long = kernel.long_rows(reset=True)
+                    if long != (2 * m if n > 1024 else 0):
+                        fail(f"{kind} ({m}, {n}): {long} rows in the long-row kernel")
+                    long_total += long
+                    cases += 1
+    for n in (ops.MAX_STREAM_LEN + 1, 2 * ops.MAX_STREAM_LEN):
+        z = torch.zeros(2, n, dtype=torch.int64, device=dev)
+        try:
+            ops.stream_stats_op(z, z)
+        except ValueError:
+            continue
+        fail(f"width {n} above the kernel's limit was not refused")
+    log(f"[kernels] any width: {cases} cases at N in {ANY_WIDTHS + LONG_WIDTHS} "
+        f"(with and without true lengths) bit-equal to the plain version and "
+        f"the NumPy oracle; {long_total} rows through the long-row kernel; "
+        f"N > {ops.MAX_STREAM_LEN} refused ({time.perf_counter() - t0:.1f} s)")
+    return float(worst)
+
+
 def device_time(fn, iters: int = 1) -> tuple[float, float, int]:
     """Profile ``iters`` calls of ``fn``: ``(wall s, device busy s, device
     ops)``, the device numbers summed over the profiler's trace."""
@@ -318,9 +407,11 @@ def profiled(fn, iters: int = 50) -> tuple[float, int]:
     return busy * 1e3 / iters, count // iters
 
 
-def raw_launch(o: torch.Tensor, s: torch.Tensor, with_dist: bool, copies: int = 1):
+def raw_launch(o: torch.Tensor, s: torch.Tensor, with_dist: bool, copies: int = 1,
+               lens: torch.Tensor | None = None):
     """The kernel's C entry point with no wrapper around it, on the current
-    stream.  With ``copies`` > 1 the launches take turns over that many
+    stream (``lens``: the rows' true lengths, as the main path passes
+    them).  With ``copies`` > 1 the launches take turns over that many
     copies of the inputs, so that a launch finds its inputs evicted from
     L2 when the copies exceed it."""
 
@@ -329,8 +420,9 @@ def raw_launch(o: torch.Tensor, s: torch.Tensor, with_dist: bool, copies: int = 
     rf = torch.empty(m, dtype=torch.int64, device=o.device)
     dist = torch.empty(m, dtype=torch.int64, device=o.device)
     bufs = [(o, s)] + [(o.clone(), s.clone()) for _ in range(copies - 1)]
-    args = [(a.data_ptr(), b.data_ptr(), rf.data_ptr(),
-             dist.data_ptr() if with_dist else None, m, n) for a, b in bufs]
+    args = [(a.data_ptr(), b.data_ptr(), None if lens is None else lens.data_ptr(),
+             rf.data_ptr(), dist.data_ptr() if with_dist else None, m, n)
+            for a, b in bufs]
     turn = iter(range(1 << 62))
 
     def launch():
@@ -338,35 +430,39 @@ def raw_launch(o: torch.Tensor, s: torch.Tensor, with_dist: bool, copies: int = 
                                    torch.cuda.current_stream().cuda_stream) != 0:
             fail("raw stream_stats launch failed")
 
-    launch.buffers = (bufs, rf, dist)  # alive while the pointers are used
+    launch.buffers = (bufs, rf, dist, lens)  # alive while the pointers are used
     return launch
 
 
-def one_launch_matrix(shards: list[TraceBatch]) -> tuple[np.ndarray, np.ndarray]:
+def one_launch_matrix(shards: list[TraceBatch], stream_len: int = 128
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The matrix the sweep's scoring launches once: every shard's padded
-    stream matrix, concatenated (``core.trace._score_shards_kernel``)."""
+    stream matrix, concatenated (``core.trace._score_shards_kernel``), and
+    each row's true length (which the launch takes only where a pad cannot
+    be score-neutral, never on the sweep's trace)."""
 
-    mats = [b.padded_stream_matrix() for b in shards]
-    return (np.concatenate([o for o, _, _ in mats]),
-            np.concatenate([s for _, s, _ in mats]))
+    mats = [b.padded_stream_matrix(stream_len) for b in shards]
+    return tuple(np.concatenate([m[i] for m in mats]) for i in range(3))
 
 
 def check_shards(dev: torch.device, shards: list[TraceBatch]) -> int:
     """Both kernels bit-equal to their plain versions on every padded
     shard matrix of the sweep and on their concatenation, the matrix the
-    main path launches; returns the largest |error|."""
+    main path launches, with and without the rows' true lengths; returns
+    the largest |error|."""
 
     worst = 0
-    mats = [b.padded_stream_matrix()[:2] for b in shards]
-    for i, (o_np, s_np) in enumerate(mats + [one_launch_matrix(shards)]):
+    mats = [b.padded_stream_matrix() for b in shards]
+    for i, (o_np, s_np, l_np) in enumerate(mats + [one_launch_matrix(shards)]):
         o = torch.from_numpy(o_np).to(dev)
         s = torch.from_numpy(s_np).to(dev)
-        rf_p, dist_p = ref.stream_stats_ref(o, s)
-        rf_k, _, dist_k = ops.stream_stats_op(o, s)
+        ln = torch.from_numpy(l_np).to(dev) if i % 2 else None
+        rf_p, dist_p = ref.stream_stats_ref(o, s, ln)
+        rf_k, _, dist_k = ops.stream_stats_op(o, s, ln)
         for label, got, want in (
             ("stream_stats rf", rf_k, rf_p),
             ("stream_stats dist", dist_k, dist_p),
-            ("stream_rf", ops.stream_rf_op(o, s), rf_p),
+            ("stream_rf", ops.stream_rf_op(o, s, ln), rf_p),
         ):
             if got.numel():
                 worst = max(worst, int((got - want).abs().max()))
@@ -374,21 +470,54 @@ def check_shards(dev: torch.device, shards: list[TraceBatch]) -> int:
                 what = f"shard {i}" if i < len(shards) else "one-launch matrix"
                 fail(f"sweep {what} {tuple(o.shape)}: {label} differs "
                      "from the plain version")
-    log(f"[kernels] {len(shards)} sweep shard matrices and their concatenation "
-        f"{tuple(o.shape)} bit-equal to the plain version")
+    log(f"[kernels] {len(shards)} sweep shard matrices (every other one with its "
+        f"true lengths) and their concatenation {tuple(o.shape)} bit-equal to the "
+        "plain version")
     return worst
 
 
+def _timed_shape(o, s, ln, with_dist: bool, key: str) -> dict:
+    """One shape's times (see :func:`kernel_timings`), ``key`` suffixed."""
+
+    op = ops.stream_stats_op if with_dist else ops.stream_rf_op
+    plain = ref.stream_stats_ref if with_dist else ref.stream_rf_ref
+    m, n = o.shape
+    copies = -(-2 * L2_BYTES // (m * n * 16))
+    plain_ms, plain_ops = profiled(lambda: plain(o, s, ln))
+    lib_ms, _ = profiled(lambda: torch.sort(o, dim=1, stable=True))
+    return {
+        f"ms{key}": graph_ms(raw_launch(o, s, with_dist, lens=ln)),
+        # inputs rotated over copies that fill twice the L2
+        f"ms_cold{key}": graph_ms(raw_launch(o, s, with_dist, copies=copies, lens=ln),
+                                  per_graph=max(100, copies)),
+        f"plain_ms{key}": plain_ms,
+        f"bound_ms{key}": bound_ms(m, n, with_dist),
+        f"bound_by{key}": "bytes",
+        f"library_ms{key}": lib_ms,
+        f"call_ms{key}": cuda_ms(lambda: op(o, s, ln)),
+        f"plain_device_ops{key}": plain_ops,
+        f"shape{key}": [m, n],
+    }
+
+
 def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
-                   launches: dict) -> list[dict]:
+                   launches: dict, any_len: dict) -> list[dict]:
     """Times at the main path's shape, the concatenation of the sweep's
-    padded shard matrices (one launch for all shards); beside it the
-    largest shard's matrix (the shape of one launch per shard) and
-    the whole trace as one matrix.  ``ms``: raw launches back to back in a
-    CUDA graph on the same inputs (in L2 after the first); ``ms_cold``: the
-    same with the inputs rotated over copies that fill twice the L2;
+    padded shard matrices (one launch for all shards); beside it the same
+    with the rows' true lengths (``_with_lengths``: the kernel's instance
+    for them, which a launch takes only where a pad cannot be
+    score-neutral), the largest shard's matrix (the shape of one launch
+    per shard), the whole trace as one matrix, and (``_len96``) the
+    one-launch matrix of the sweep at ``stream_len=96`` (the padded
+    branch: a 128-wide sort of 96 requests);
+    and, as a row of its own, the long-row kernel on the whole trace at
+    ``stream_len=2048`` (489, 2048).  ``ms``: raw launches back to back in
+    a CUDA graph on the same inputs (in L2 after the first); ``ms_cold``:
+    the same with the inputs rotated over copies that fill twice the L2;
     ``plain_ms``/``library_ms``: device time from the profiler;
-    ``call_ms``: CUDA events per wrapper call, host overhead included."""
+    ``call_ms``: CUDA events per wrapper call, host overhead included.
+    ``any_len`` holds the launch counts of the ``stream_len`` 96 and 2048
+    sweeps."""
 
     prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES,
                         policy="range-offset", device=dev)
@@ -396,38 +525,40 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
     worst = float(max(worst, check_shards(dev, shards)))
     shard = max(shards, key=lambda b: b.num_requests)
     rows = {}
-    for key, (o, s) in (("", one_launch_matrix(shards)),
-                        ("_largest_shard", shard.padded_stream_matrix()[:2]),
-                        ("_whole_trace", batch.padded_stream_matrix()[:2])):
-        rows[key] = (torch.from_numpy(o).to(dev), torch.from_numpy(s).to(dev))
+    for key, mats in (("", one_launch_matrix(shards)),
+                      ("_largest_shard", shard.padded_stream_matrix()),
+                      ("_whole_trace", batch.padded_stream_matrix()),
+                      ("_len96", one_launch_matrix(shards, 96))):
+        # as the main path launches them: score-neutral pads, no lengths
+        rows[key] = tuple(torch.from_numpy(a).to(dev) for a in mats[:2]) + (None,)
+    rows["_with_lengths"] = rows[""][:2] + (
+        torch.from_numpy(one_launch_matrix(shards)[2]).to(dev),)
     out = []
     for name, with_dist in (("stream_stats", True), ("stream_rf", False)):
-        op = ops.stream_stats_op if with_dist else ops.stream_rf_op
-        plain = ref.stream_stats_ref if with_dist else ref.stream_rf_ref
         entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                  "replaces": REPLACES[name], "launches": launches[name],
                  "max_abs_err": worst}
-        for key, (o, s) in rows.items():
-            m, n = o.shape
-            copies = -(-2 * L2_BYTES // (m * n * 16))
-            plain_ms, plain_ops = profiled(lambda: plain(o, s))
-            lib_ms, _ = profiled(lambda: torch.sort(o, dim=1, stable=True))
-            entry.update({
-                f"ms{key}": graph_ms(raw_launch(o, s, with_dist)),
-                # inputs rotated over copies that fill twice the L2
-                f"ms_cold{key}": graph_ms(raw_launch(o, s, with_dist, copies=copies),
-                                          per_graph=max(100, copies)),
-                f"plain_ms{key}": plain_ms,
-                f"bound_ms{key}": bound_ms(m, n, with_dist),
-                f"bound_by{key}": "bytes",
-                f"library_ms{key}": lib_ms,
-                f"call_ms{key}": cuda_ms(lambda: op(o, s)),
-                f"plain_device_ops{key}": plain_ops,
-                f"shape{key}": [m, n],
-            })
+        for key, (o, s, ln) in rows.items():
+            entry.update(_timed_shape(o, s, ln, with_dist, key))
+        entry["launches_len96"] = any_len[96]["launches"][name]
         entry["library_call"] = ("torch.sort(offsets, dim=1, stable=True): the "
                                  "sort alone, a yardstick the port never calls")
         out.append(entry)
+    o, s = (torch.from_numpy(a).to(dev) for a in batch.padded_stream_matrix(2048)[:2])
+    ln = None  # as the stream_len=2048 sweep launches it
+    rf_k, _, dist_k = ops.stream_stats_op(o, s, ln)
+    rf_p, dist_p = ref.stream_stats_ref(o, s, ln)
+    if not (torch.equal(rf_k, rf_p) and torch.equal(dist_k, dist_p)):
+        fail("long-row kernel differs from the plain version at (489, 2048)")
+    long_entry = {"name": "stream_stats_long_rows", "route": "cuda", "source": KERNEL_SOURCE,
+                  "replaces": REPLACES["stream_stats"],
+                  "launches": any_len[2048]["launches"]["stream_stats"],
+                  "max_abs_err": float(max(int((rf_k - rf_p).abs().max()),
+                                           int((dist_k - dist_p).abs().max()), worst)),
+                  "main_path": "the sweep at stream_len=2048 (one launch, 489 rows)"}
+    long_entry.update(_timed_shape(o, s, ln, True, ""))
+    long_entry["library_call"] = out[0]["library_call"]
+    out.append(long_entry)
     return out
 
 
@@ -511,8 +642,13 @@ def first_call_parts(dev: torch.device, prog: FleetProgram, batch: TraceBatch,
     return out
 
 
-def phase_sweep(dev: torch.device, batch: TraceBatch) -> tuple[dict, int]:
-    cap = max(batch.total_bytes // 2 // SWEEP_NODES, 64 << 20)
+def sweep_capacity(batch: TraceBatch) -> int:
+    return max(batch.total_bytes // 2 // SWEEP_NODES, 64 << 20)
+
+
+def phase_sweep(dev: torch.device, batch: TraceBatch) -> tuple[dict, int, dict, float]:
+    t_phase = time.perf_counter()
+    cap = sweep_capacity(batch)
     lanes = SWEEP_NODES * len(SCHEMES)
     prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES,
                         policy="range-offset", ssd_capacity=cap, device=dev)
@@ -577,7 +713,237 @@ def phase_sweep(dev: torch.device, batch: TraceBatch) -> tuple[dict, int]:
                     fail(f"{s}.{f}: card {x!r} vs cpu {y!r}")
     log(f"[sweep] card == cpu: integer fields exact, clocks max rel diff "
         f"{worst:.3g} (cpu run {time.perf_counter() - t0:.1f} s)")
-    return launches, wide
+    log(f"[sweep] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, wide, res, t_best
+
+
+FTL_HOST_REQUESTS = 100_000  # the host FTL comparison's cut (see phase_ftl_sweep)
+INT_FIELDS = ("bytes_to_ssd", "bytes_to_hdd_direct", "flushes", "peak_ssd_occupancy")
+CLOCK_FIELDS = ("io_seconds", "total_seconds", "blocked_seconds", "flush_paused_seconds")
+
+
+def same_within(label: str, got: dict, want: dict, rel: float = 1e-9) -> float:
+    """``got`` and ``want`` (scheme -> FleetResult): integer fields exact,
+    clocks within ``rel``; returns the largest relative clock gap."""
+
+    worst = 0.0
+    for s in want:
+        for i, (a, b) in enumerate(zip(got[s].node_results, want[s].node_results)):
+            for f in INT_FIELDS:
+                if getattr(a, f) != getattr(b, f):
+                    fail(f"{label} {s}[{i}].{f}: {getattr(a, f)} != {getattr(b, f)}")
+            for f in CLOCK_FIELDS:
+                x, y = getattr(a, f), getattr(b, f)
+                gap = abs(x - y) / max(abs(y), 1e-300)
+                worst = max(worst, gap)
+                if gap > rel:
+                    fail(f"{label} {s}[{i}].{f}: {x!r} vs {y!r}")
+    return worst
+
+
+def within_device_tolerances(label: str, host: dict, device: dict) -> None:
+    """Each scheme's device-engine fleet within ``DEVICE_TOLERANCES`` of the
+    host batched engine's (the reference's acceptance comparison)."""
+
+    tol = {k: list(v) for k, v in ed.DEVICE_TOLERANCES.items()}
+    for s in host:
+        diffs = golden.diff_fleet(golden.fleet_result_to_dict(host[s]),
+                                  golden.fleet_result_to_dict(device[s]), tolerances=tol)
+        if diffs:
+            fail(f"{label} {s}: device engine outside DEVICE_TOLERANCES of the "
+                 "batched engine:\n" + "\n".join(diffs[:10]))
+
+
+def conserved(label: str, res: dict, total: int) -> None:
+    for s, fr in res.items():
+        if fr.total_bytes != total:
+            fail(f"{label} {s}: routed {fr.total_bytes} bytes of {total}")
+        vals = [v for r in fr.node_results for v in (r.io_seconds, r.total_seconds)]
+        if not all(math.isfinite(v) and v >= 0 for v in vals):
+            fail(f"{label} {s}: non-finite or negative clocks")
+
+
+def ftl_gc(prog: FleetProgram) -> tuple[float, float]:
+    """GC relocations (pages) over every lane of the last run, and the
+    write amplification (host pages + relocated) / host pages."""
+
+    out = prog.last_lanes
+    reloc = float(out["ftl_reloc_pages"].sum())
+    host = float(out["bytes_to_ssd"].sum()) / prog.ssd.page_size
+    return reloc, (host + reloc) / host if host else 1.0
+
+
+def phase_ftl_sweep(dev: torch.device, batch: TraceBatch) -> dict:
+    """The sweep with the page-mapped FTL SSD (``ssd="ftl"``): same trace,
+    lanes and ``ssd_capacity``; bytes conserved, card equal to the CPU, and
+    the device engine within ``DEVICE_TOLERANCES`` of the host batched
+    engine with the FTL.  The host engine charges the FTL one request at a
+    time (its bit-parity contract), minutes of host time over the full
+    trace, so that comparison alone runs on a trace cut to
+    ``FTL_HOST_REQUESTS`` requests, its capacity cut in proportion (half a
+    node's share)."""
+
+    t_phase = time.perf_counter()
+    cap = sweep_capacity(batch)
+    prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
+                        ssd_capacity=cap, ssd="ftl", device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = prog.run(batch)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    if launches["stream_stats"] != 1:
+        fail(f"ftl sweep: stream_stats launched {launches['stream_stats']} times, expected 1")
+    steady = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = prog.run(batch)
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t0)
+    t_prof, busy, n_ops = device_time(lambda: prog.run(batch))
+    conserved("ftl sweep", res, batch.total_bytes)
+    reloc, wa = ftl_gc(prog)
+    per_scheme = {s: float(prog.last_lanes["ftl_reloc_pages"][i * SWEEP_NODES:(i + 1) * SWEEP_NODES].sum())
+                  for i, s in enumerate(SCHEMES)}
+    log(f"[ftl] ssd='ftl', {SWEEP_NODES} nodes x {len(SCHEMES)} schemes, ssd_capacity {cap}")
+    log(f"[ftl] first call {t_first:.3f} s, steady {json.dumps(steady)} s, best "
+        f"{min(steady):.3f} s; profiled steady run {t_prof:.3f} s: device busy "
+        f"{busy:.4f} s ({busy / t_prof:.2%}), {n_ops} device ops")
+    log(f"[ftl] launches on the path: {json.dumps(launches)}")
+    log(f"[ftl] GC relocations (ftl_reloc) {reloc:.1f} pages over all lanes "
+        f"{json.dumps(per_scheme)}; write amplification {wa:.6f}")
+    t0 = time.perf_counter()
+    cpu = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
+                       ssd_capacity=cap, ssd="ftl", device="cpu").run(batch)
+    worst = same_within("ftl sweep card vs cpu", res, cpu)
+    log(f"[ftl] card == cpu: integer fields exact, clocks max rel diff {worst:.3g} "
+        f"(cpu run {time.perf_counter() - t0:.1f} s)")
+
+    small = sweep_trace(FTL_HOST_REQUESTS)
+    small_cap = small.total_bytes // 2 // SWEEP_NODES
+    log(f"[ftl] cut: the host-engine comparison runs on {FTL_HOST_REQUESTS:,} of the "
+        f"{batch.num_requests:,} requests (sweep_trace({FTL_HOST_REQUESTS})), "
+        f"ssd_capacity {small_cap} (half a node's share, as in the full sweep)")
+    t0 = time.perf_counter()
+    small_prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
+                              ssd_capacity=small_cap, ssd="ftl", device=dev)
+    on_card = small_prog.run(small)
+    small_reloc, small_wa = ftl_gc(small_prog)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = {s: FleetSimulator(num_nodes=SWEEP_NODES, scheme=s, policy="range-offset",
+                              ssd_capacity=small_cap, ssd="ftl", engine="batched",
+                              device=dev).run(small) for s in SCHEMES}
+    t_host = time.perf_counter() - t0
+    within_device_tolerances("ftl cut", host, on_card)
+    log(f"[ftl] cut: FleetProgram within DEVICE_TOLERANCES of FleetSimulator("
+        f"engine='batched', ssd='ftl') over all {len(SCHEMES) * SWEEP_NODES} node "
+        f"replays; GC relocations {small_reloc:.1f} pages, write amplification "
+        f"{small_wa:.6f}; FleetProgram {t_card:.2f} s, host {t_host:.2f} s")
+    log(f"[ftl] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "reloc": reloc, "wa": wa}
+
+
+def phase_host_engines(dev: torch.device, batch: TraceBatch, swept: dict,
+                       t_sweep: float) -> dict:
+    """The host replay engines: ``FleetSimulator(engine="batched")`` over
+    every node and scheme of the sweep, scoring on the card, held against
+    the sweep's ``FleetProgram`` within ``DEVICE_TOLERANCES``;
+    ``run_schemes`` with the device and the batched engine on both golden
+    workloads (card equal to the CPU); the 16 golden fixtures replayed
+    exactly through the batched engine."""
+
+    t_phase = time.perf_counter()
+    cap = sweep_capacity(batch)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    host = {s: FleetSimulator(num_nodes=SWEEP_NODES, scheme=s, policy="range-offset",
+                              ssd_capacity=cap, engine="batched", score_backend="kernel",
+                              device=dev).run(batch) for s in SCHEMES}
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    if launches["stream_stats"] != len(SCHEMES):
+        fail(f"FleetSimulator: stream_stats launched {launches['stream_stats']} times, "
+             f"expected {len(SCHEMES)} (one per run, all shards at once)")
+    conserved("FleetSimulator", host, batch.total_bytes)
+    within_device_tolerances("sweep", host, swept)
+    log(f"[host] FleetSimulator(engine='batched') {SWEEP_NODES} nodes x {len(SCHEMES)} "
+        f"schemes: {t_host:.2f} s (the sweep's FleetProgram: best {t_sweep:.3f} s); "
+        f"FleetProgram within DEVICE_TOLERANCES of it; launches {json.dumps(launches)}")
+    for wl in golden.FIXTURE_WORKLOADS:
+        gb = golden_trace(wl)
+        kw = dict(ssd_capacity=golden._node_capacity(gb.total_bytes))
+        t0 = time.perf_counter()
+        runs = {eng: run_schemes(gb, engine=eng, device=dev, **kw)
+                for eng in ("device", "batched")}
+        t_runs = time.perf_counter() - t0
+        numpy_cpu = run_schemes(gb, engine="batched", score_backend="numpy", device="cpu", **kw)
+        device_cpu = run_schemes(gb, engine="device", device="cpu", **kw)
+        for s in SCHEMES:
+            if golden.sim_result_to_dict(runs["batched"][s]) != \
+                    golden.sim_result_to_dict(numpy_cpu[s]):
+                fail(f"run_schemes {wl} {s}: batched engine on the card differs from the CPU")
+        wrap = lambda d: {s: FleetResult(s, "-", 1, (r,)) for s, r in d.items()}  # noqa: E731
+        worst = same_within(f"run_schemes {wl} device", wrap(runs["device"]), wrap(device_cpu))
+        conserved(f"run_schemes {wl}", {**wrap(runs["device"])}, gb.total_bytes)
+        conserved(f"run_schemes {wl}", {**wrap(runs["batched"])}, gb.total_bytes)
+        io = {eng: {s: r.io_seconds for s, r in d.items()} for eng, d in runs.items()}
+        log(f"[host] run_schemes {wl}: batched on the card == CPU exactly, device "
+            f"engine card == cpu (clocks {worst:.3g}); io_seconds {json.dumps(io)} "
+            f"({t_runs:.2f} s)")
+    t0 = time.perf_counter()
+    for scheme, wl, policy in ((s, w, p) for s in golden.FIXTURE_SCHEMES
+                               for w in golden.FIXTURE_WORKLOADS
+                               for p in golden.FIXTURE_POLICIES):
+        payload = golden.load_fixture(golden.GOLDEN_DIR / golden.fixture_name(scheme, wl, policy))
+        diffs = golden.check_fixture(payload, golden.replay_fixture(payload, device=dev))
+        if diffs:
+            fail(f"{scheme}__{wl}__{policy} through FleetSimulator(engine='batched'):\n"
+                 + "\n".join(diffs))
+    log(f"[host] 16 golden fixtures replayed exactly through FleetSimulator("
+        f"engine='batched') on the card ({time.perf_counter() - t0:.2f} s)")
+    log(f"[host] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "seconds": t_host}
+
+
+def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
+    """The sweep at ``stream_len`` 96 (the kernel's padded branch) and 2048
+    (its long-row kernel), each launching ``stream_stats`` once and equal,
+    field for field, to the same sweep scored by the NumPy oracle."""
+
+    t_phase = time.perf_counter()
+    cap = sweep_capacity(batch)
+    out = {}
+    for stream_len in (96, 2048):
+        ops.reset_launches()
+        kernel.long_rows(reset=True)
+        t0 = time.perf_counter()
+        res = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
+                           stream_len=stream_len, ssd_capacity=cap, device=dev).run(batch)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        long = kernel.long_rows(reset=True)
+        if launches["stream_stats"] != 1:
+            fail(f"stream_len={stream_len}: stream_stats launched "
+                 f"{launches['stream_stats']} times, expected 1")
+        if (long > 0) != (stream_len > 1024):
+            fail(f"stream_len={stream_len}: {long} rows in the long-row kernel")
+        conserved(f"stream_len={stream_len}", res, batch.total_bytes)
+        oracle = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
+                              stream_len=stream_len, ssd_capacity=cap, score_backend="numpy",
+                              device=dev).run(batch)
+        for s in SCHEMES:
+            if golden.fleet_result_to_dict(res[s]) != golden.fleet_result_to_dict(oracle[s]):
+                fail(f"stream_len={stream_len} {s}: kernel scoring differs from numpy")
+        log(f"[any-len] stream_len={stream_len}: first call {t_first:.3f} s, launches "
+            f"{json.dumps(launches)}, {long} rows in the long-row kernel; equal to "
+            "score_backend='numpy'")
+        out[stream_len] = {"launches": launches, "long_rows": long}
+    log(f"[any-len] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 # -- model kernels and the serve path ---------------------------------------
@@ -1080,12 +1446,18 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build()
     worst = phase_kernels(dev)
+    worst = max(worst, phase_any_width(dev))
     model_worst = check_model_kernels(dev)
     phase_golden(dev)
     batch = sweep_trace(SWEEP_REQUESTS)
-    launches, wide = phase_sweep(dev, batch)
-    kernels = kernel_timings(dev, batch, worst, launches)
+    launches, wide, swept, t_sweep = phase_sweep(dev, batch)
+    ftl = phase_ftl_sweep(dev, batch)
+    host = phase_host_engines(dev, batch, swept, t_sweep)
+    any_len = phase_any_len_sweeps(dev, batch)
+    kernels = kernel_timings(dev, batch, worst, launches, any_len)
     kernels[0]["main_path_wide_rows"] = wide
+    kernels[0]["launches_ftl_sweep"] = ftl["launches"]["stream_stats"]
+    kernels[0]["launches_host_engines"] = host["launches"]["stream_stats"]
     model_launches = {}
     for arch in SERVE_ARCHS:
         res = phase_serve(dev, arch)

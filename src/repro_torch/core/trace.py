@@ -10,12 +10,16 @@
   the program's device: the CUDA kernel on ``cuda``, its plain torch
   version on ``cpu``.  ``backend="numpy"`` is the host oracle.  Both are
   int64 and exact at any offset magnitude, so they agree bit for bit.
+  The kernel takes any ``stream_len`` up to
+  :data:`~repro_torch.kernels.stream_rf.ops.MAX_STREAM_LEN`; longer
+  streams need ``backend="numpy"``.
 
 Streams are blocks of ``stream_len`` requests in arrival order; gaps do not
 flush a partial block.  The trailing partial stream is padded into a
-score-neutral row (:meth:`TraceBatch.padded_stream_matrix`) so that one
-launch scores every stream; a fleet's shards stack their matrices so that
-one launch scores every shard (``FleetProgram``).
+score-neutral row (:meth:`TraceBatch.padded_stream_matrix`; where no pad
+can be, it is scored on its true length) so that one launch scores every
+stream; a fleet's shards stack their matrices so that one launch scores
+every shard (``FleetProgram``, ``FleetSimulator``).
 """
 
 from __future__ import annotations
@@ -78,6 +82,27 @@ class TraceBatch:
         if g and (np.any(self.gap_positions < 0) or np.any(self.gap_positions > r)):
             raise ValueError("gap position out of range")
 
+    def validate(self) -> None:
+        """Deep per-element invariants (sanitize mode; ``__post_init__``
+        only checks shapes).  Raises :class:`ValueError` on the first
+        violated one: non-negative sizes/offsets, finite non-negative gap
+        durations, non-decreasing gap positions and request times."""
+
+        if self.num_requests:
+            if np.any(self.sizes < 0):
+                raise ValueError("negative request size in trace")
+            if np.any(self.offsets < 0):
+                raise ValueError("negative request offset in trace")
+            if not np.all(np.isfinite(self.times)):
+                raise ValueError("non-finite request time in trace")
+        if self.num_gaps:
+            if np.any(np.diff(self.gap_positions) < 0):
+                raise ValueError("gap_positions must be non-decreasing")
+            if not np.all(np.isfinite(self.gap_seconds)):
+                raise ValueError("non-finite gap duration in trace")
+            if np.any(self.gap_seconds < 0):
+                raise ValueError("negative gap duration in trace")
+
     # -- constructors ---------------------------------------------------
     @classmethod
     def from_numpy(cls, **arrays) -> "TraceBatch":
@@ -121,6 +146,42 @@ class TraceBatch:
                               app_ids=aids, times=tms, gap_positions=gpos,
                               gap_seconds=gsec)
 
+    @classmethod
+    def from_requests(cls, requests: Sequence[Request]) -> "TraceBatch":
+        """Build from a gap-free request sequence (e.g. ``Workload.trace``)."""
+
+        return cls.from_items(requests)
+
+    # -- converters -----------------------------------------------------
+    def to_items(self) -> list[TraceItem]:
+        """Round-trip back to the simulator's item list (gaps in place)."""
+
+        out: list[TraceItem] = []
+        gi = 0
+        ng = len(self.gap_positions)
+        for i in range(self.num_requests):
+            while gi < ng and self.gap_positions[gi] == i:
+                out.append(Gap(float(self.gap_seconds[gi])))
+                gi += 1
+            out.append(
+                Request(
+                    offset=int(self.offsets[i]),
+                    size=int(self.sizes[i]),
+                    file_id=int(self.file_ids[i]),
+                    app_id=int(self.app_ids[i]),
+                    time=float(self.times[i]),
+                )
+            )
+        while gi < ng:
+            out.append(Gap(float(self.gap_seconds[gi])))
+            gi += 1
+        return out
+
+    def to_requests(self) -> list[Request]:
+        """Requests only (gap markers dropped)."""
+
+        return [r for r in self.to_items() if isinstance(r, Request)]
+
     # -- basic queries --------------------------------------------------
     @property
     def num_requests(self) -> int:
@@ -133,6 +194,13 @@ class TraceBatch:
     @property
     def total_bytes(self) -> int:
         return int(self.sizes.sum())
+
+    @property
+    def gap_seconds_total(self) -> float:
+        return float(self.gap_seconds.sum())
+
+    def num_streams(self, stream_len: int = DEFAULT_STREAM_LEN) -> int:
+        return -(-self.num_requests // stream_len) if self.num_requests else 0
 
     # -- slicing / sharding --------------------------------------------
     def select(self, indices: np.ndarray) -> "TraceBatch":
@@ -216,34 +284,39 @@ class TraceBatch:
         they land after every real request, the (last, pad) residual is 0
         and so are the pad-pad residuals: no seek and no distance is added.
         Only the percentage's denominator (``true_lens - 1``) needs the
-        true length.
+        true length.  Where that end lies past INT64_MAX, no offset can
+        hold it: the pad then sits at INT64_MAX and only scoring on the
+        true length is exact.
         """
 
         rows = -(-self.num_requests // stream_len)
         offs = np.empty((rows, stream_len), dtype=np.int64)
         szs = np.empty((rows, stream_len), dtype=np.int64)
-        return offs, szs, self._fill_padded_streams(stream_len, offs, szs)
+        return offs, szs, self._fill_padded_streams(stream_len, offs, szs)[0]
 
     def _fill_padded_streams(self, stream_len: int, offs: np.ndarray,
-                             szs: np.ndarray) -> np.ndarray:
+                             szs: np.ndarray) -> tuple[np.ndarray, bool]:
         """Write :meth:`padded_stream_matrix`'s rows into ``offs`` and
         ``szs`` (each ``(S, stream_len)``, e.g. slices of a larger matrix);
-        returns the true lengths."""
+        returns the true lengths and whether the pad is score-neutral."""
 
         m, t = divmod(self.num_requests, stream_len)
         full = m * stream_len
         offs[:m] = self.offsets[:full].reshape(m, stream_len)
         szs[:m] = self.sizes[:full].reshape(m, stream_len)
         lens = np.full(m + (t > 0), stream_len, dtype=np.int64)
+        neutral = True
         if t:
             tail_offs, tail_szs = self.offsets[full:], self.sizes[full:]
             # sorted-last real request = LAST occurrence of the max offset
             j = t - 1 - int(np.argmax(tail_offs[::-1]))
             offs[m, :t], szs[m, :t] = tail_offs, tail_szs
-            offs[m, t:] = np.int64(int(tail_offs[j]) + int(tail_szs[j]))
+            end = int(tail_offs[j]) + int(tail_szs[j])
+            neutral = end <= np.iinfo(np.int64).max
+            offs[m, t:] = np.int64(min(end, np.iinfo(np.int64).max))
             szs[m, t:] = 0
             lens[m] = t
-        return lens
+        return lens, neutral
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -258,6 +331,27 @@ class StreamScores:
     offset_sum: np.ndarray  # (S,) int64
     stream_len: int
     backend: str
+
+    def __len__(self) -> int:
+        return int(self.rf_sum.shape[0])
+
+    def validate(self) -> None:
+        """Deep per-element invariants (sanitize mode): every score row
+        in range — random percentage in [0, 1], non-negative seek sums,
+        byte counts and distances.  Raises :class:`ValueError`."""
+
+        n = len(self)
+        for name in ("percentage", "seek_distance", "nbytes", "offset_sum"):
+            if getattr(self, name).shape[0] != n:
+                raise ValueError(f"{name} length != rf_sum length {n}")
+        if n == 0:
+            return
+        if np.any(self.rf_sum < 0) or np.any(self.seek_distance < 0):
+            raise ValueError("negative seek score")
+        if np.any(self.nbytes < 0):
+            raise ValueError("negative stream byte count")
+        if np.any((self.percentage < 0.0) | (self.percentage > 1.0)):
+            raise ValueError("random percentage outside [0, 1]")
 
 
 SCORE_BACKENDS = ("numpy", "kernel")
@@ -282,19 +376,27 @@ def _score_shards_kernel(
     kernel launch: their padded stream matrices are stacked into one
     ``(sum S, stream_len)`` matrix, copied to ``device`` once, scored, and
     read back once.  Rows are independent and the padding is
-    score-neutral, so each trace's scores equal scoring it alone."""
+    score-neutral, so each trace's scores equal scoring it alone.  Where a
+    pad cannot be (a trailing stream ending past INT64_MAX), the launch
+    also takes every row's true length, and the kernel leaves the
+    positions past it out; the kernel's instance for true lengths is the
+    slower one, so the common case does without."""
 
     from ..kernels.stream_rf.ops import stream_stats_op
 
     rows = np.cumsum([0] + [-(-b.num_requests // stream_len) for b in batches])
     both = np.empty((2, rows[-1], stream_len), dtype=np.int64)  # offsets, sizes
-    lens = [b._fill_padded_streams(stream_len, both[0, lo:hi], both[1, lo:hi])
-            for b, lo, hi in zip(batches, rows[:-1], rows[1:])]
+    filled = [b._fill_padded_streams(stream_len, both[0, lo:hi], both[1, lo:hi])
+              for b, lo, hi in zip(batches, rows[:-1], rows[1:])]
+    lens = [f[0] for f in filled]
     rf = np.zeros(0, dtype=np.int64)
     dist = rf
     if rows[-1]:
         both = torch.from_numpy(both).to(device)  # one copy
-        rf_d, _, dist_d = stream_stats_op(both[0], both[1])
+        true_lens = None
+        if not all(f[1] for f in filled):
+            true_lens = torch.from_numpy(np.concatenate(lens)).to(device)
+        rf_d, _, dist_d = stream_stats_op(both[0], both[1], true_lens)
         rf, dist = torch.stack([rf_d, dist_d]).cpu().numpy()  # one readback
     out = []
     for b, n, lo, hi in zip(batches, lens, rows[:-1], rows[1:]):
@@ -329,8 +431,9 @@ def compute_stream_scores(
 
     ``backend="kernel"`` scores on ``device`` (``None``: the CUDA card;
     raises without one), launching the CUDA kernel there or running its
-    plain torch version on ``"cpu"``; ``stream_len`` must be a power of
-    two.  ``backend="numpy"`` is the host oracle and ignores ``device``.
+    plain torch version on ``"cpu"``; ``stream_len`` may be anything up to
+    the kernel's limit (8192).  ``backend="numpy"`` is the host oracle,
+    takes any ``stream_len`` and ignores ``device``.
     Both are bit-exact against the scalar definitions.
     """
 

@@ -57,6 +57,26 @@
 //   need, so that half of the bytes arrive while it runs.  Rows past M are
 //   sentinel rows of zeros that are sorted and not stored, so every lane
 //   takes part in every shuffle.
+//
+// Any length.  A row of N requests that is not a power of two, or a row
+// whose true length L (an optional per-row `lens` array: a trace's ragged
+// last stream) is below the matrix width, runs at the next power-of-two
+// width W.  Positions from L up to W are inert: their bucket key is the
+// largest (every bucket bit set) with their own index, their exact key is
+// (INT64_MAX, index), they take no part in the row's min and max, and the
+// count and distance stop at position L - 1.  A real offset of INT64_MAX
+// still sorts before them, by index.  Rows of such widths are not 16-byte
+// aligned in device memory, so their offsets and sizes are read by plain
+// coalesced 8-byte loads instead of cp.async.
+//
+// Long rows (1024 < N <= 8192): one block of kLongThreads threads scores
+// one row.  It stages the exact keys (offset, 16-bit index) and the sizes
+// in dynamic shared memory (18 B a position: 147,456 B at N = 8192, of the
+// 227 KB a block may have), runs the textbook bitonic network over
+// W = next power of two positions with a block barrier between stages,
+// then counts and sums the residuals in a strided loop and a block
+// reduction.  Simple, not tuned: each stage is one pass over shared memory.
+// Rows it scores are counted in `long_rows` (stream_stats_long_rows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,10 +86,14 @@ namespace {
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kFixRounds = 2;  // odd-even transposition rounds before the wide branch
+constexpr int kLongThreads = 1024;  // threads per block of the long-row kernel
+constexpr long long kInt64Max = 0x7fffffffffffffffLL;
 
 // rows scored by the wide branch since the last reset (see
 // stream_stats_wide_rows)
 __device__ unsigned long long wide_rows = 0;
+// rows scored by the long-row kernel since the last reset
+__device__ unsigned long long long_rows = 0;
 
 // The fast key: one unsigned 32-bit word.
 struct Bucket {
@@ -224,14 +248,29 @@ __device__ __forceinline__ void copy_rows(long long* dst, const long long* src,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// The same for rows of n < W elements (not 16-byte aligned): element f of
+// the warp's G * n contiguous elements goes to position f % n of row f / n.
+// Positions n .. W - 1 are left as they are (inert); rows past M are zeros.
+template <int W, int G>
+__device__ __forceinline__ void load_rows(long long* dst, const long long* src,
+                                          long long row0, long long m, int n) {
+  for (int f = (int)threadIdx.x; f < G * n; f += kWarp) {
+    const int g = f / n;
+    dst[g * W + (f - g * n)] = row0 + g < m ? src[row0 * n + f] : 0;
+  }
+}
+
 // Scores G = 32 / T rows per warp (one warp per block); thread t of row g
 // holds positions t * K .. t * K + K - 1 of it.
-template <int LOG_W, int LOG_K>
+// PAD: rows may be shorter than W (n < W, or a `lens` array); positions
+// from the row's length on are inert (see the header).
+template <int LOG_W, int LOG_K, bool PAD>
 __global__ void __launch_bounds__(kWarp)
 stream_stats_kernel(const long long* __restrict__ offs,
                     const long long* __restrict__ sizes,
+                    const long long* __restrict__ lens,
                     long long* __restrict__ rf_out,
-                    long long* __restrict__ dist_out, long long m) {
+                    long long* __restrict__ dist_out, long long m, int n) {
   constexpr int W = 1 << LOG_W;
   constexpr int K = 1 << LOG_K;
   constexpr int T = W / K;      // threads per row
@@ -243,21 +282,37 @@ stream_stats_kernel(const long long* __restrict__ offs,
   const int t = threadIdx.x % T;
   const long long row = (long long)blockIdx.x * G + g;
   const bool live = row < m;  // a sentinel row of zeros past M
+  // the row's true length: positions from it on are inert (PAD only)
+  int len = W;
+  if (PAD) {
+    len = n;
+    if (lens != nullptr && live) {
+      const long long l = lens[row];
+      len = l < 0 ? 0 : (l < n ? (int)l : n);
+    }
+  }
 
   // The offsets first, then the sizes in a second group: the sort needs
   // only the offsets, so the sizes are still arriving while it runs.
-  copy_rows<W, G>(&off_of[0][0], offs, (long long)blockIdx.x * G, m);
-  copy_rows<W, G>(&size_of[0][0], sizes, (long long)blockIdx.x * G, m);
-  asm volatile("cp.async.wait_group 1;\n" ::);  // the offsets
+  if (!PAD || n == W) {
+    copy_rows<W, G>(&off_of[0][0], offs, (long long)blockIdx.x * G, m);
+    copy_rows<W, G>(&size_of[0][0], sizes, (long long)blockIdx.x * G, m);
+    asm volatile("cp.async.wait_group 1;\n" ::);  // the offsets
+  } else {
+    load_rows<W, G>(&off_of[0][0], offs, (long long)blockIdx.x * G, m, n);
+    load_rows<W, G>(&size_of[0][0], sizes, (long long)blockIdx.x * G, m, n);
+  }
   __syncwarp();
 
   long long lo = 0x7fffffffffffffffLL;
   long long hi = -lo - 1;
 #pragma unroll
   for (int r = 0; r < K; ++r) {
-    const long long o = off_of[g][r * T + t];
-    lo = o < lo ? o : lo;
-    hi = o > hi ? o : hi;
+    if (!PAD || r * T + t < len) {
+      const long long o = off_of[g][r * T + t];
+      lo = o < lo ? o : lo;
+      hi = o > hi ? o : hi;
+    }
   }
 #pragma unroll
   for (int s = T / 2; s > 0; s >>= 1) {
@@ -278,6 +333,7 @@ stream_stats_kernel(const long long* __restrict__ offs,
     const unsigned long long rel =
         (unsigned long long)off_of[g][r * T + t] - (unsigned long long)lo;
     v[r].k = (unsigned)(rel >> shift) << LOG_W | (unsigned)(r * T + t);
+    if (PAD && r * T + t >= len) v[r].k = ~0u << LOG_W | (unsigned)(r * T + t);
   }
   bitonic_sort<LOG_W, LOG_K>(v, t);
 
@@ -286,7 +342,7 @@ stream_stats_kernel(const long long* __restrict__ offs,
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     ix[r] = (int)(v[r].k & (W - 1));
-    o[r] = off_of[g][ix[r]];
+    o[r] = PAD && ix[r] >= len ? kInt64Max : off_of[g][ix[r]];
   }
   bool wide = false;
   for (int round = 0; !warp_in_order<W, K>(o, ix, t); ++round) {
@@ -294,7 +350,10 @@ stream_stats_kernel(const long long* __restrict__ offs,
       wide = true;
       Wide w[K];
 #pragma unroll
-      for (int r = 0; r < K; ++r) w[r] = {off_of[g][r * T + t], r * T + t};
+      for (int r = 0; r < K; ++r) {
+        const int p = r * T + t;
+        w[r] = {PAD && p >= len ? kInt64Max : off_of[g][p], p};
+      }
       bitonic_sort<LOG_W, LOG_K>(w, t);
 #pragma unroll
       for (int r = 0; r < K; ++r) {
@@ -316,7 +375,7 @@ stream_stats_kernel(const long long* __restrict__ offs,
   unsigned long long dist = 0;
 #pragma unroll
   for (int r = 0; r < K; ++r) {
-    if (t * K + r < W - 1) {
+    if (t * K + r < len - 1) {
       const long long on = r + 1 < K ? o[r + 1 < K ? r + 1 : r] : o_next;
       unsigned long long d = (unsigned long long)on - (unsigned long long)o[r] -
                              (unsigned long long)size_of[g][ix[r]];
@@ -337,46 +396,163 @@ stream_stats_kernel(const long long* __restrict__ offs,
 }
 
 template <int LOG_W, int LOG_K>
-int launch(const long long* offs, const long long* sizes, long long* rf,
-           long long* dist, long long m, cudaStream_t stream) {
+int launch(const long long* offs, const long long* sizes, const long long* lens,
+           long long* rf, long long* dist, long long m, int n,
+           cudaStream_t stream) {
   constexpr int G = kWarp / ((1 << LOG_W) >> LOG_K);
   const long long blocks = (m + G - 1) / G;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  stream_stats_kernel<LOG_W, LOG_K>
-      <<<(unsigned)blocks, kWarp, 0, stream>>>(offs, sizes, rf, dist, m);
+  if (lens == nullptr && n == (1 << LOG_W)) {
+    stream_stats_kernel<LOG_W, LOG_K, false><<<(unsigned)blocks, kWarp, 0, stream>>>(
+        offs, sizes, nullptr, rf, dist, m, n);
+  } else {
+    stream_stats_kernel<LOG_W, LOG_K, true><<<(unsigned)blocks, kWarp, 0, stream>>>(
+        offs, sizes, lens, rf, dist, m, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One block scores one long row (1024 < n <= kMaxLong); see the header.
+// Shared memory: W exact offsets, n sizes, W 16-bit indices.
+constexpr int kMaxLong = 8192;
+
+__global__ void __launch_bounds__(kLongThreads)
+stream_stats_long_kernel(const long long* __restrict__ offs,
+                         const long long* __restrict__ sizes,
+                         const long long* __restrict__ lens,
+                         long long* __restrict__ rf_out,
+                         long long* __restrict__ dist_out, int n, int log_w) {
+  extern __shared__ __align__(16) long long smem[];
+  const int w = 1 << log_w;
+  long long* key = smem;                       // [w] exact offsets
+  long long* size_of = smem + w;               // [n] sizes, arrival order
+  unsigned short* ix = reinterpret_cast<unsigned short*>(smem + w + n);  // [w]
+  const long long row = blockIdx.x;
+  int len = n;
+  if (lens != nullptr) {
+    const long long l = lens[row];
+    len = l < 0 ? 0 : (l < n ? (int)l : n);
+  }
+  const long long* ro = offs + row * n;
+  const long long* rs = sizes + row * n;
+  for (int p = threadIdx.x; p < w; p += kLongThreads) {
+    key[p] = p < len ? ro[p] : kInt64Max;
+    ix[p] = (unsigned short)p;
+    if (p < n) size_of[p] = rs[p];
+  }
+  __syncthreads();
+  // ascending bitonic sort on (offset, index); pair (a, a | j), a's bit j
+  // clear, ascending where a's bit k is clear
+  for (int k = 2; k <= w; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < w / 2; i += kLongThreads) {
+        const int a = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int b = a | j;
+        const long long oa = key[a], ob = key[b];
+        const int ia = ix[a], ib = ix[b];
+        const bool b_first = before(ob, ib, oa, ia);
+        if (b_first == ((a & k) == 0)) {
+          key[a] = ob;
+          key[b] = oa;
+          ix[a] = (unsigned short)ib;
+          ix[b] = (unsigned short)ia;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  unsigned rf = 0;
+  unsigned long long dist = 0;
+  for (int p = threadIdx.x; p < len - 1; p += kLongThreads) {
+    unsigned long long d = (unsigned long long)key[p + 1] -
+                           (unsigned long long)key[p] -
+                           (unsigned long long)size_of[ix[p]];
+    rf += d != 0ull;
+    if ((long long)d < 0) d = 0ull - d;
+    dist += d;
+  }
+#pragma unroll
+  for (int s = kWarp / 2; s > 0; s >>= 1) {
+    rf += __shfl_xor_sync(kFull, rf, s);
+    dist += __shfl_xor_sync(kFull, dist, s);
+  }
+  __shared__ unsigned warp_rf[kLongThreads / kWarp];
+  __shared__ unsigned long long warp_dist[kLongThreads / kWarp];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (lane == 0) {
+    warp_rf[warp] = rf;
+    warp_dist[warp] = dist;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    rf = lane < kLongThreads / kWarp ? warp_rf[lane] : 0u;
+    dist = lane < kLongThreads / kWarp ? warp_dist[lane] : 0ull;
+#pragma unroll
+    for (int s = kWarp / 2; s > 0; s >>= 1) {
+      rf += __shfl_xor_sync(kFull, rf, s);
+      dist += __shfl_xor_sync(kFull, dist, s);
+    }
+    if (lane == 0) {
+      rf_out[row] = (long long)rf;
+      if (dist_out != nullptr) dist_out[row] = (long long)dist;
+      atomicAdd(&long_rows, 1ull);
+    }
+  }
+}
+
+int launch_long(const long long* offs, const long long* sizes,
+                const long long* lens, long long* rf, long long* dist,
+                long long m, int n, cudaStream_t stream) {
+  if (m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int log_w = 0;
+  while ((1 << log_w) < n) ++log_w;
+  const int w = 1 << log_w;
+  const size_t bytes = (size_t)w * 8 + (size_t)n * 8 + (size_t)w * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      stream_stats_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  stream_stats_long_kernel<<<(unsigned)m, kLongThreads, bytes, stream>>>(
+      offs, sizes, lens, rf, dist, n, log_w);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `dist` may be null (count only).  n must be a power of two in [2, 1024]
-// and offs and sizes 16-byte aligned; the caller checks shapes, dtypes and
-// contiguity.
+// Rows are n elements apart, 2 <= n <= 8192.  `dist` may be null (count
+// only); `lens` may be null (every row n long), else M true lengths.
+// When n is a power of two up to 1024, offs and sizes must be 16-byte
+// aligned.  The caller checks shapes, dtypes and contiguity.
 extern "C" int stream_stats_launch(const void* offs, const void* sizes,
-                                   void* rf, void* dist, long long m, int n,
-                                   void* stream) {
+                                   const void* lens, void* rf, void* dist,
+                                   long long m, int n, void* stream) {
   if (m <= 0) return 0;
-  if ((reinterpret_cast<uintptr_t>(offs) | reinterpret_cast<uintptr_t>(sizes)) & 15) {
-    return (int)cudaErrorMisalignedAddress;
-  }
+  if (n < 2 || n > kMaxLong) return (int)cudaErrorInvalidValue;
   const long long* o = static_cast<const long long*>(offs);
   const long long* s = static_cast<const long long*>(sizes);
+  const long long* l = static_cast<const long long*>(lens);
   long long* r = static_cast<long long*>(rf);
   long long* d = static_cast<long long*>(dist);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n) {  // <log2 n, log2 K>
-    case 2: return launch<1, 1>(o, s, r, d, m, st);
-    case 4: return launch<2, 2>(o, s, r, d, m, st);
-    case 8: return launch<3, 3>(o, s, r, d, m, st);
-    case 16: return launch<4, 3>(o, s, r, d, m, st);
-    case 32: return launch<5, 3>(o, s, r, d, m, st);
-    case 64: return launch<6, 3>(o, s, r, d, m, st);
-    case 128: return launch<7, 3>(o, s, r, d, m, st);
-    case 256: return launch<8, 3>(o, s, r, d, m, st);
-    case 512: return launch<9, 4>(o, s, r, d, m, st);
-    case 1024: return launch<10, 5>(o, s, r, d, m, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (n > 1024) return launch_long(o, s, l, r, d, m, n, st);
+  int w = 2;
+  while (w < n) w <<= 1;
+  if (w == n &&
+      ((reinterpret_cast<uintptr_t>(offs) | reinterpret_cast<uintptr_t>(sizes)) & 15)) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  switch (w) {  // <log2 W, log2 K>
+    case 2: return launch<1, 1>(o, s, l, r, d, m, n, st);
+    case 4: return launch<2, 2>(o, s, l, r, d, m, n, st);
+    case 8: return launch<3, 3>(o, s, l, r, d, m, n, st);
+    case 16: return launch<4, 3>(o, s, l, r, d, m, n, st);
+    case 32: return launch<5, 3>(o, s, l, r, d, m, n, st);
+    case 64: return launch<6, 3>(o, s, l, r, d, m, n, st);
+    case 128: return launch<7, 3>(o, s, l, r, d, m, n, st);
+    case 256: return launch<8, 3>(o, s, l, r, d, m, n, st);
+    case 512: return launch<9, 4>(o, s, l, r, d, m, n, st);
+    default: return launch<10, 5>(o, s, l, r, d, m, n, st);
   }
 }
 
@@ -388,6 +564,16 @@ extern "C" int stream_stats_wide_rows(unsigned long long* out, int reset) {
   if (err == cudaSuccess && reset) {
     const unsigned long long zero = 0;
     err = cudaMemcpyToSymbol(wide_rows, &zero, sizeof(zero));
+  }
+  return (int)err;
+}
+
+// The same for the rows the long-row kernel has scored.
+extern "C" int stream_stats_long_rows(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, long_rows, sizeof(*out));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    err = cudaMemcpyToSymbol(long_rows, &zero, sizeof(zero));
   }
   return (int)err;
 }

@@ -5,6 +5,11 @@
 * :func:`stream_rf_op` — the count alone, ``(M, N) -> rf``;
 * :func:`random_percentage_op` — ``rf / (N - 1)`` in float64.
 
+Rows may be any length N in [2, :data:`MAX_STREAM_LEN`]; an optional
+``lengths`` vector gives each row's true length (a trace's ragged last
+stream), and positions beyond it count for nothing.  Above the limit the
+wrappers raise; score such streams with ``score_backend="numpy"``.
+
 On a CUDA tensor they launch the hand-written kernel
 (``csrc/stream_rf.cu``) on the current stream, and raise if it cannot be
 built or launched; on a CPU tensor they run the plain torch version
@@ -23,15 +28,20 @@ from . import ref
 
 launches = {"stream_stats": 0, "stream_rf": 0}
 
+#: The longest row the kernel scores (its long-row branch keeps a whole row
+#: in one block's shared memory).
+MAX_STREAM_LEN = 8192
+
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
 
 
-def _checked(offsets: torch.Tensor, sizes) -> tuple[torch.Tensor, torch.Tensor]:
+def _checked(offsets: torch.Tensor, sizes, lengths=None):
     """Validate the kernel's contract; returns contiguous int64 ``(M, N)``
-    offsets and sizes (sizes broadcast to the offsets' shape)."""
+    offsets and sizes (sizes broadcast to the offsets' shape) and the
+    lengths (``None``, or a contiguous int64 ``(M,)`` tensor)."""
 
     if not isinstance(offsets, torch.Tensor) or offsets.dim() != 2:
         raise ValueError("offsets must be an (M, N) tensor")
@@ -45,9 +55,18 @@ def _checked(offsets: torch.Tensor, sizes) -> tuple[torch.Tensor, torch.Tensor]:
     if sizes.device != offsets.device:
         raise ValueError("offsets and sizes must be on one device")
     n = offsets.shape[1]
-    if n < 2 or n > 1024 or n & (n - 1):
-        raise ValueError(f"stream length {n} must be a power of two in [2, 1024]")
-    return offsets, sizes.expand(offsets.shape).contiguous()
+    if n < 2 or n > MAX_STREAM_LEN:
+        raise ValueError(
+            f"stream length {n} is outside the kernel's [2, {MAX_STREAM_LEN}]; "
+            'score longer streams with score_backend="numpy"'
+        )
+    if lengths is not None:
+        if not isinstance(lengths, torch.Tensor) or lengths.dtype != torch.int64:
+            raise TypeError("lengths must be an int64 tensor")
+        if lengths.shape != offsets.shape[:1] or lengths.device != offsets.device:
+            raise ValueError("lengths must be (M,) on the offsets' device")
+        lengths = lengths.contiguous()
+    return offsets, sizes.expand(offsets.shape).contiguous(), lengths
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -57,7 +76,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(offs: torch.Tensor, szs: torch.Tensor, with_dist: bool):
+def _launch(offs: torch.Tensor, szs: torch.Tensor, lens, with_dist: bool):
     from .kernel import load  # builds with nvcc on first use
 
     offs, szs = _aligned(offs), _aligned(szs)
@@ -70,7 +89,8 @@ def _launch(offs: torch.Tensor, szs: torch.Tensor, with_dist: bool):
     with torch.cuda.device(offs.device):
         stream = torch.cuda.current_stream(offs.device).cuda_stream
         err = lib.stream_stats_launch(
-            offs.data_ptr(), szs.data_ptr(), rf.data_ptr(),
+            offs.data_ptr(), szs.data_ptr(),
+            lens.data_ptr() if lens is not None else None, rf.data_ptr(),
             dist.data_ptr() if with_dist else None, m, n, stream,
         )
     if err != 0:
@@ -79,35 +99,45 @@ def _launch(offs: torch.Tensor, szs: torch.Tensor, with_dist: bool):
     return rf, dist
 
 
-def _run(offsets, sizes, with_dist: bool):
-    offs, szs = _checked(offsets, sizes)
+def _run(offsets, sizes, lengths, with_dist: bool):
+    offs, szs, lens = _checked(offsets, sizes, lengths)
     if offs.device.type == "cpu":
-        rf, dist = ref.stream_stats_ref(offs, szs)
+        rf, dist = ref.stream_stats_ref(offs, szs, lens)
         return rf, (dist if with_dist else None)
     if offs.device.type == "cuda":
-        return _launch(offs, szs, with_dist)
+        return _launch(offs, szs, lens, with_dist)
     raise ValueError(f"no stream_rf kernel for device {offs.device}")
 
 
+def _percentage(rf: torch.Tensor, n: int, lengths) -> torch.Tensor:
+    """``rf / (L - 1)`` in float64, ``L`` the true length (0 where L <= 1)."""
+
+    if lengths is None:
+        return rf.to(torch.float64) / (n - 1)
+    return rf.to(torch.float64) / torch.clamp(lengths.clamp(max=n) - 1, min=1)
+
+
 def stream_stats_op(
-    offsets: torch.Tensor, sizes
+    offsets: torch.Tensor, sizes, lengths: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(M, N)`` int64 -> ``(rf int64, pct float64, dist int64)``, each
-    ``(M,)``, bit-equal to the NumPy oracle ``stream_stats_batch_np``."""
+    ``(M,)``, bit-equal to the NumPy oracle ``stream_stats_batch_np`` on
+    each row's first ``lengths[i]`` requests (all N without ``lengths``)."""
 
-    rf, dist = _run(offsets, sizes, with_dist=True)
-    pct = rf.to(torch.float64) / (offsets.shape[1] - 1)
-    return rf, pct, dist
+    rf, dist = _run(offsets, sizes, lengths, with_dist=True)
+    return rf, _percentage(rf, offsets.shape[1], lengths), dist
 
 
-def stream_rf_op(offsets: torch.Tensor, sizes) -> torch.Tensor:
+def stream_rf_op(offsets: torch.Tensor, sizes,
+                 lengths: torch.Tensor | None = None) -> torch.Tensor:
     """``(M, N)`` int64 -> Eq. 1 seek counts ``(M,)`` int64."""
 
-    return _run(offsets, sizes, with_dist=False)[0]
+    return _run(offsets, sizes, lengths, with_dist=False)[0]
 
 
-def random_percentage_op(offsets: torch.Tensor, sizes) -> torch.Tensor:
+def random_percentage_op(offsets: torch.Tensor, sizes,
+                         lengths: torch.Tensor | None = None) -> torch.Tensor:
     """``(M, N)`` int64 -> ``rf / (N - 1)`` ``(M,)`` float64."""
 
-    rf = stream_rf_op(offsets, sizes)
-    return rf.to(torch.float64) / (offsets.shape[1] - 1)
+    rf = stream_rf_op(offsets, sizes, lengths)
+    return _percentage(rf, offsets.shape[1], lengths)

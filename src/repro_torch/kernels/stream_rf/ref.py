@@ -16,18 +16,21 @@ from repro_torch.core.random_factor import stream_stats_batch
 
 
 def stream_stats_ref(
-    offsets: torch.Tensor, sizes: torch.Tensor
+    offsets: torch.Tensor, sizes: torch.Tensor,
+    lengths: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(M, N)`` int64 -> ``(rf (M,) int64, dist (M,) int64)``."""
+    """``(M, N)`` int64 -> ``(rf (M,) int64, dist (M,) int64)``; row ``i``
+    scores its first ``lengths[i]`` requests (all N without ``lengths``)."""
 
-    rf, _, dist = stream_stats_batch(offsets, sizes)
+    rf, _, dist = stream_stats_batch(offsets, sizes, lengths)
     return rf, dist
 
 
-def stream_rf_ref(offsets: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+def stream_rf_ref(offsets: torch.Tensor, sizes: torch.Tensor,
+                  lengths: torch.Tensor | None = None) -> torch.Tensor:
     """``(M, N)`` int64 -> rf sums ``(M,)`` int64."""
 
-    return stream_stats_ref(offsets, sizes)[0]
+    return stream_stats_ref(offsets, sizes, lengths)[0]
 
 
 def threshold_quantile_ref(

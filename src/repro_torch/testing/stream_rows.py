@@ -55,7 +55,7 @@ def stream_rows(kind: str, m: int, n: int,
         return offs, ints(INT64_MIN, INT64_MAX)
     if kind == "collide":  # every odd element 1 byte below the even one before it
         offs, szs = stream_rows("random40", m, n, rng)
-        offs[:, 1::2] = offs[:, 0::2] - 1
+        offs[:, 1::2] = offs[:, 0:n - 1:2] - 1
         return offs, szs
     if kind == "outlier":  # a reversed 4 KiB run beside one far offset
         offs = np.arange(n - 1, -1, -1, dtype=np.int64) * 4096 + ints(0, 1 << 30, (m, 1))

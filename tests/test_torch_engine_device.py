@@ -126,6 +126,7 @@ def enable_x64(new_val=True):
 jax.experimental.enable_x64 = enable_x64  # removed in jax 0.9
 
 from repro.core import TraceBatch, compute_stream_scores, engine_device as ed
+from repro.core.device_model import make_storage_model
 from repro.distributed.sharding import assign_nodes
 from repro.testing import golden
 from repro.testing.traces import golden_trace
@@ -133,14 +134,14 @@ from repro.testing.traces import golden_trace
 assert ed.jax is not None, "the reference device engine did not import"
 SCHEMES = ("orangefs", "orangefs-bb", "ssdup", "ssdup+")
 
-def sweep(batch, policy, nodes, cap, gate=0.5, warmup=None):
+def sweep(batch, policy, nodes, cap, gate=0.5, warmup=None, ssd=None):
     a = assign_nodes(policy, batch.offsets, batch.file_ids, batch.app_ids, nodes)
-    tapes = [ed.build_events(s, compute_stream_scores(s))
+    tapes = [ed.build_events(s, compute_stream_scores(s), ssd=ssd)
              for s in batch.shard(a, nodes)]
     events = ed.stack_events([tapes[n] for _ in SCHEMES for n in range(nodes)])
-    lanes = ed._stack_lanes([ed.lane_consts(s, cap, gate)
+    lanes = ed._stack_lanes([ed.lane_consts(s, cap, gate, ssd=ssd)
                              for s in SCHEMES for _ in range(nodes)])
-    state0 = ed._stack_lanes([ed.initial_lane_state(s, 64, warmup)
+    state0 = ed._stack_lanes([ed.initial_lane_state(s, 64, warmup, ssd=ssd)
                               for s in SCHEMES for _ in range(nodes)])
     return events, lanes, state0
 
@@ -153,6 +154,13 @@ b = golden_trace("mixed-burst")
 warm = list(compute_stream_scores(b).percentage[:40])
 cases["warmup"] = sweep(b, "round-robin-app", 4,
                         golden._node_capacity(b.total_bytes), warmup=warm)
+# FTL lanes where GC fires: 4 MiB per node, and the fixture capacity
+cases["ftl-mixed-burst"] = sweep(b, "range-offset", 4, 4 << 20,
+                                 ssd=make_storage_model("ftl", logical_bytes=4 << 20))
+b = golden_trace("strided-gaps")
+cap = golden._node_capacity(b.total_bytes)
+cases["ftl-strided-gaps"] = sweep(b, "round-robin-app", 4, cap,
+                                  ssd=make_storage_model("ftl", logical_bytes=cap))
 import json
 with open(golden.GOLDEN_DIR / "anomaly_16n_straggler.json") as f:
     p = json.load(f)
@@ -176,7 +184,8 @@ np.savez(sys.argv[1], **arrays)
 '''
 
 LIVE_CASES = ("mixed-burst", "strided-gaps", "warmup", "anomaly-gate0.5",
-              "anomaly-gate0.75", "anomaly-gatedevice")
+              "anomaly-gate0.75", "anomaly-gatedevice", "ftl-mixed-burst",
+              "ftl-strided-gaps")
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +215,8 @@ def test_transition_matches_live_jax_reference(jax_reference, case):
         assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
     for k in FLOAT_OUT:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-9, atol=0, err_msg=k)
+    if case.startswith("ftl-"):  # GC fired in some lane
+        assert bool(c["lanes"]["ftl_on"].all()) and want["ftl_reloc_pages"].max() > 0
 
 
 # -- golden fixtures ------------------------------------------------------
@@ -353,8 +364,3 @@ def test_empty_shard_lane():
     r = simulate_device(empty, scheme="ssdup+", device="cpu")
     assert r.total_bytes == 0 and r.io_seconds == 0.0
     assert r.total_seconds == float(batch.gap_seconds.sum())
-
-
-def test_ftl_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FleetProgram(ssd="ftl", device="cpu")

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import FleetProgram, compute_stream_scores, replay_lanes, simulate_device
+from repro_torch.core import (FleetProgram, FleetSimulator, IONodeSimulator,
+                              compute_stream_scores, replay_lanes, run_fleet_schemes,
+                              run_schemes, simulate_device)
 from repro_torch.core import engine_device as ed
 from repro_torch.launch.serve import serve
 from repro_torch.models import get_model
@@ -42,6 +44,14 @@ def test_no_jax_or_reference_import(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+def test_scan_covers_the_host_engine_modules():
+    names = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
+    for mod in ("avl", "extent_index", "log_store", "pipeline", "redirector", "ftl",
+                "simulator", "fleet", "device_model"):
+        assert f"core/{mod}.py" in names
+    assert "testing/golden.py" in names
+
+
 _BLOCKED_RUN = r'''
 import sys
 sys.modules["jax"] = None
@@ -53,6 +63,14 @@ batch = golden_trace("strided-gaps")
 res = FleetProgram(num_nodes=2, policy="round-robin-app", ssd_capacity=64 << 20,
                    device="cpu").run(batch)
 assert all(fr.total_bytes == batch.total_bytes for fr in res.values())
+from repro_torch.core import run_fleet_schemes, run_schemes
+ftl = FleetProgram(num_nodes=2, ssd_capacity=4 << 20, ssd="ftl", stream_len=96,
+                   device="cpu").run(batch)
+host = run_fleet_schemes(batch, num_nodes=2, ssd="ftl", ssd_capacity=4 << 20, device="cpu")
+one = run_schemes(batch, engine="per-request", device="cpu")
+assert all(fr.total_bytes == batch.total_bytes for fr in (*ftl.values(), *host.values()))
+assert all(r.total_bytes == batch.total_bytes for r in one.values())
+import repro_torch.testing.golden
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import serve
 for arch in ("qwen3-1.7b", "falcon-mamba-7b"):
@@ -95,6 +113,18 @@ def test_other_entry_points_need_cuda_by_default(no_cuda):
             ed._stack_lanes([ed.initial_lane_state("ssdup+", 64)]))
     with pytest.raises(RuntimeError, match="CUDA"):
         replay_lanes(*args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IONodeSimulator(score_backend="numpy").run(batch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_schemes(batch, engine="per-request")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetSimulator(score_backend="numpy").run(batch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fleet_schemes(batch, score_backend="numpy")
+    assert IONodeSimulator(device="cpu").run(batch).total_bytes == batch.total_bytes
+    assert run_schemes(batch, device="cpu")["ssdup+"].total_bytes == batch.total_bytes
+    assert FleetSimulator(device="cpu").run(batch).total_bytes == batch.total_bytes
+    assert run_fleet_schemes(batch, device="cpu")["orangefs"].total_bytes == batch.total_bytes
 
 
 def test_model_entry_points_need_cuda_by_default(no_cuda):

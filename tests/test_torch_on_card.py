@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import FleetProgram
 from repro_torch.core.random_factor import stream_stats_batch_np
 from repro_torch.core.trace import _score_shards_kernel
 from repro_torch.distributed.sharding import assign_nodes
@@ -28,7 +29,8 @@ from repro_torch.kernels.stream_rf import ops as rf_ops
 from repro_torch.kernels.stream_rf import ref as rf_ref
 from repro_torch.launch.serve import serve
 from repro_torch.testing import stream_rows
-from repro_torch.testing.traces import sweep_trace
+from repro_torch.testing.golden import fleet_result_to_dict
+from repro_torch.testing.traces import golden_trace, sweep_trace
 
 pytestmark = pytest.mark.cuda
 
@@ -261,3 +263,56 @@ def test_stream_kernel_on_views_8_bytes_off(card):
     rf_np, _, dist_np = stream_stats_batch_np(offs, szs)
     assert np.array_equal(rf.cpu().numpy(), rf_np)
     assert np.array_equal(dist.cpu().numpy(), dist_np)
+
+
+@pytest.mark.parametrize("kind", stream_rows.KINDS)
+@pytest.mark.parametrize("n", [3, 17, 96, 1000, 1025, 2048, 4096, 8192])
+def test_stream_kernel_any_width_and_true_lengths(card, n, kind):
+    """Widths that are not powers of two (the padded branch) and above 1024
+    (the long-row kernel), on every row kind, with and without per-row true
+    lengths: bit-equal to the plain version and to the NumPy oracle on each
+    row's real requests."""
+
+    rng = np.random.default_rng(n + 77 * stream_rows.KINDS.index(kind))
+    m = 37 if n <= 1024 else 5
+    offs, szs = stream_rows.stream_rows(kind, m, n, rng)
+    if n & (n - 1):
+        _stream_case(card, offs, szs)
+    lens = rng.integers(0, n + 1, size=m)
+    lens[:3] = (0, 1, n)
+    o, s = torch.from_numpy(offs).to(card), torch.from_numpy(szs).to(card)
+    ln = torch.from_numpy(lens).to(card)
+    rf_kernel.long_rows(reset=True)
+    rf, pct, dist = rf_ops.stream_stats_op(o, s, ln)
+    rf_p, dist_p = rf_ref.stream_stats_ref(o, s, ln)
+    assert torch.equal(rf, rf_p) and torch.equal(dist, dist_p)
+    want = [stream_stats_batch_np(offs[i:i + 1, :k], szs[i:i + 1, :k]) for i, k in enumerate(lens)]
+    assert np.array_equal(rf.cpu().numpy(), [w[0][0] for w in want])
+    assert np.array_equal(dist.cpu().numpy(), [w[2][0] for w in want])
+    assert rf_kernel.long_rows(reset=True) == (m if n > 1024 else 0)
+
+
+def test_stream_kernel_refuses_above_its_limit(card):
+    n = rf_ops.MAX_STREAM_LEN + 1
+    z = torch.zeros(2, n, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="numpy"):
+        rf_ops.stream_stats_op(z, z)
+
+
+@pytest.mark.parametrize("workload", ["mixed-burst", "strided-gaps"])
+def test_ftl_sweep_card_equals_cpu(card, workload):
+    """FleetProgram(ssd="ftl") at 4 MiB a node (GC fires): integer fields
+    exact, clocks within 1e-9 relative, card against CPU."""
+
+    batch = golden_trace(workload)
+    kw = dict(num_nodes=4, policy="range-offset", ssd_capacity=4 << 20, ssd="ftl")
+    got = FleetProgram(device=card, **kw).run(batch)
+    want = FleetProgram(device="cpu", **kw).run(batch)
+    for scheme in want:
+        for g, w in zip(fleet_result_to_dict(got[scheme])["nodes"],
+                        fleet_result_to_dict(want[scheme])["nodes"]):
+            for k, v in w.items():
+                if isinstance(v, float):
+                    assert g[k] == pytest.approx(v, rel=1e-9, abs=0), (scheme, k)
+                else:
+                    assert g[k] == v, (scheme, k)

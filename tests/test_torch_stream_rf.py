@@ -126,14 +126,50 @@ def test_sizes_broadcast_like_the_oracle():
     (torch.zeros(4, 8, dtype=torch.int32), torch.zeros(4, 8, dtype=torch.int64), TypeError),
     (torch.zeros(4, 8, dtype=torch.int64), torch.zeros(4, 8, dtype=torch.int32), TypeError),
     (torch.zeros(8, 4, dtype=torch.int64).t(), torch.zeros(4, 8, dtype=torch.int64), ValueError),
-    (torch.zeros(4, 12, dtype=torch.int64), torch.zeros(4, 12, dtype=torch.int64), ValueError),
-    (torch.zeros(4, 2048, dtype=torch.int64), torch.zeros(4, 2048, dtype=torch.int64), ValueError),
+    (torch.zeros(2, ops.MAX_STREAM_LEN + 1, dtype=torch.int64),
+     torch.zeros(2, ops.MAX_STREAM_LEN + 1, dtype=torch.int64), ValueError),
+    (torch.zeros(2, 2 * ops.MAX_STREAM_LEN, dtype=torch.int64),
+     torch.zeros(2, 2 * ops.MAX_STREAM_LEN, dtype=torch.int64), ValueError),
     (torch.zeros(4, 1, dtype=torch.int64), torch.zeros(4, 1, dtype=torch.int64), ValueError),
     (torch.zeros(8, dtype=torch.int64), torch.zeros(8, dtype=torch.int64), ValueError),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(offsets, sizes, exc):
     with pytest.raises(exc):
         ops.stream_stats_op(offsets, sizes)
+
+
+def test_above_the_limit_the_error_names_it_and_the_numpy_backend():
+    n = ops.MAX_STREAM_LEN + 1
+    with pytest.raises(ValueError, match=f"{ops.MAX_STREAM_LEN}.*score_backend=\"numpy\""):
+        ops.stream_stats_op(torch.zeros(1, n, dtype=torch.int64),
+                            torch.zeros(1, n, dtype=torch.int64))
+
+
+ANY_NS = (2, 3, 17, 96, 1000, 1024, 2048, 3000)
+
+
+@pytest.mark.parametrize("kind", stream_rows.KINDS)
+@pytest.mark.parametrize("n", ANY_NS)
+def test_any_width_and_true_lengths_equal_numpy_oracle(n, kind):
+    """Every width up to the limit, and rows scored on a shorter true length
+    (positions past it inert, INT64_MAX rows included): bit-equal to the
+    NumPy oracle on each row's real requests (tolerance 0)."""
+
+    rng = np.random.default_rng(n * 13 + stream_rows.KINDS.index(kind))
+    m = 9
+    offs, szs = stream_rows.stream_rows(kind, m, n, rng)
+    rf_np, pct_np, dist_np = stream_stats_batch_np(offs, szs)
+    rf, pct, dist = ops.stream_stats_op(_t(offs), _t(szs))
+    assert np.array_equal(rf.numpy(), rf_np) and np.array_equal(dist.numpy(), dist_np)
+    assert np.array_equal(pct.numpy(), pct_np)
+
+    lens = rng.integers(0, n + 1, size=m)
+    lens[:3] = (0, 1, n)
+    want = [stream_stats_batch_np(offs[i:i + 1, :k], szs[i:i + 1, :k]) for i, k in enumerate(lens)]
+    rf, pct, dist = ops.stream_stats_op(_t(offs), _t(szs), torch.from_numpy(lens))
+    assert np.array_equal(rf.numpy(), [w[0][0] for w in want])
+    assert np.array_equal(dist.numpy(), [w[2][0] for w in want])
+    assert np.array_equal(pct.numpy(), [w[1][0] if k > 1 else 0.0 for w, k in zip(want, lens)])
 
 
 def test_unaligned_inputs_are_copied_for_the_kernel():
@@ -189,12 +225,12 @@ SIGN = U64(1 << 63)
 
 
 def _kernel_layout(n: int) -> tuple[int, int]:
-    """``(log2 W, log2 K)`` as ``stream_stats_launch`` dispatches them: W = N
-    positions, K per thread (N up to 8, then 8 up to N = 256, 16 at 512 and
-    32 at 1024)."""
+    """``(log2 W, log2 K)`` as ``stream_stats_launch`` dispatches them: W the
+    next power of two at or above N, K positions per thread (W up to 8, then
+    8 up to W = 256, 16 at 512 and 32 at 1024)."""
 
-    log_w = n.bit_length() - 1
-    return log_w, {512: 4, 1024: 5}.get(n, min(log_w, 3))
+    log_w = max(n - 1, 1).bit_length()
+    return log_w, {512: 4, 1024: 5}.get(1 << log_w, min(log_w, 3))
 
 
 def _network(log_w: int):
@@ -236,40 +272,56 @@ def _transposition_round(o: np.ndarray, ix: np.ndarray):
             arr[:, a], arr[:, a + 1] = np.where(swap, hi, lo), np.where(swap, lo, hi)
 
 
-def _emulate_kernel(offs: np.ndarray, szs: np.ndarray):
+INT64_MAX = np.iinfo(np.int64).max
+
+
+def _emulate_kernel(offs: np.ndarray, szs: np.ndarray, lens=None):
     """rf, dist and whether each row's warp kept the fast branch, as the
-    kernel computes them: sentinel rows of zeros up to a whole warp; the
-    32-bit key ((off - min) >> shift << log2 W) | index with the shift that
-    makes it fit; the network on positions ``t * K + r`` loaded with element
-    ``r * T + t``; offsets read back by index; up to ``FIX_ROUNDS`` rounds
-    of odd-even transposition while any row of the warp is out of order,
-    then the exact network for that warp."""
+    kernel computes them: rows of N at the next power-of-two width W, with
+    positions from the row's true length L (``lens``, else N) on inert;
+    sentinel rows of zeros up to a whole warp; the 32-bit key
+    ((off - min) >> shift << log2 W) | index with the shift that makes it
+    fit, min and max over real positions only, and every bucket bit set for
+    inert ones; the network on positions ``t * K + r`` loaded with element
+    ``r * T + t``; offsets read back by index (INT64_MAX for an inert index);
+    up to ``FIX_ROUNDS`` rounds of odd-even transposition while any row of
+    the warp is out of order, then the exact network for that warp; the
+    count and distance over sorted positions below L - 1."""
 
     m, n = offs.shape
     log_w, log_k = _kernel_layout(n)
+    w = 1 << log_w
     k = 1 << log_k
-    t_per_row = n // k
+    t_per_row = w // k
     g = 32 // t_per_row
     rows = -(-m // g) * g
-    o = np.zeros((rows, n), np.int64)
-    s = np.zeros((rows, n), np.int64)
-    o[:m], s[:m] = offs, szs
-    lo, hi = o.min(1, keepdims=True), o.max(1, keepdims=True)
+    o = np.zeros((rows, w), np.int64)
+    s = np.zeros((rows, w), np.int64)
+    o[:m, :n], s[:m, :n] = offs, szs
+    length = np.full(rows, n)
+    if lens is not None:
+        length[:m] = np.clip(lens, 0, n)
+    pos = np.arange(w)
+    inert = pos[None, :] >= length[:, None]
+    lo = np.where(inert, INT64_MAX, o).min(1, keepdims=True)
+    hi = np.where(inert, np.iinfo(np.int64).min, o).max(1, keepdims=True)
     span = (hi.view(U64) - lo.view(U64))[:, 0]
     width = np.array([int(x).bit_length() for x in span])
     shift = np.maximum(width - (32 - log_w), 0).astype(U64)[:, None]
 
-    pos = np.arange(n)
-    elem = np.broadcast_to((pos % k) * t_per_row + pos // k, (rows, n))
+    elem = np.broadcast_to((pos % k) * t_per_row + pos // k, (rows, w))
     rel = np.take_along_axis(o, elem, 1).view(U64) - lo.view(U64)
     key = (((rel >> shift) << U64(log_w)) | elem.astype(U64))
+    key = np.where(np.take_along_axis(inert, elem, 1),
+                   (U64(0xFFFFFFFF) << U64(log_w)) & U64(0xFFFFFFFF) | elem.astype(U64), key)
     assert np.all(key < U64(1 << 32))
     key = key.astype(np.uint32)
     for partner, lower in _network(log_w):
         a, b = key, key[:, partner]
         key = np.where(lower, np.minimum(a, b), np.maximum(a, b))
-    ix = (key & np.uint32(n - 1)).astype(np.int64)
-    off = np.take_along_axis(o, ix, 1)
+    ix = (key & np.uint32(w - 1)).astype(np.int64)
+    o_exact = np.where(inert, INT64_MAX, o)  # the exact key of each element
+    off = np.take_along_axis(o_exact, ix, 1)
     for rnd in range(FIX_ROUNDS + 1):
         ordered = _before(off[:, :-1], ix[:, :-1], off[:, 1:], ix[:, 1:]).all(1)
         warp_ok = ordered.reshape(-1, g).all(1).repeat(g)
@@ -277,17 +329,58 @@ def _emulate_kernel(offs: np.ndarray, szs: np.ndarray):
             break
         _transposition_round(off, ix)  # a no-op on rows already in order
     fast = warp_ok
-    w_off, w_ix = _wide_network(np.take_along_axis(o, elem, 1), elem.copy(), log_w)
+    w_off, w_ix = _wide_network(np.take_along_axis(o_exact, elem, 1), elem.copy(), log_w)
     off = np.where(fast[:, None], off, w_off)
     ix = np.where(fast[:, None], ix, w_ix)
-    size = np.take_along_axis(s, ix, 1).view(U64)
-    d = off.view(U64)[:, 1:] - off.view(U64)[:, :-1] - size[:, :-1]
-    rf = (d != 0).sum(1).astype(np.int64)
-    dist = np.where(d.view(np.int64) < 0, U64(0) - d, d).sum(1, dtype=U64).view(np.int64)
+    rf, dist = _residual_sums(off, ix, s, length)
     return rf[:m], dist[:m], fast[:m]
 
 
-EMU_NS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+def _residual_sums(off, ix, s, length):
+    """Eq. 1 count and Eq. 6 distance over sorted positions below L - 1,
+    in unsigned 64-bit arithmetic as the kernel sums them."""
+
+    size = np.take_along_axis(s, ix, 1).view(U64)
+    d = off.view(U64)[:, 1:] - off.view(U64)[:, :-1] - size[:, :-1]
+    d = np.where(np.arange(d.shape[1])[None, :] < (length - 1)[:, None], d, U64(0))
+    rf = (d != 0).sum(1).astype(np.int64)
+    dist = np.where(d.view(np.int64) < 0, U64(0) - d, d).sum(1, dtype=U64).view(np.int64)
+    return rf, dist
+
+
+def _emulate_long_rows(offs: np.ndarray, szs: np.ndarray, lens=None):
+    """The long-row kernel (N > 1024): one row a block, the exact
+    (offset, index) bitonic network over W = next power of two positions,
+    positions from the true length on at (INT64_MAX, index)."""
+
+    m, n = offs.shape
+    log_w = (n - 1).bit_length()
+    w = 1 << log_w
+    length = np.full(m, n) if lens is None else np.clip(lens, 0, n)
+    o = np.full((m, w), INT64_MAX)
+    s = np.zeros((m, w), np.int64)
+    o[:, :n], s[:, :n] = offs, szs
+    pos = np.broadcast_to(np.arange(w), (m, w))
+    o = np.where(pos >= length[:, None], INT64_MAX, o)
+    # the textbook network: pair (a, a | j), ascending where a's bit k is clear
+    ix = pos.copy()
+    k = 2
+    while k <= w:
+        j = k >> 1
+        while j:
+            a = np.array([i for i in range(w) if not i & j])
+            b = a | j
+            asc = (a & k) == 0
+            swap = _before(o[:, b], ix[:, b], o[:, a], ix[:, a]) == asc
+            for arr in (o, ix):
+                lo_, hi_ = arr[:, a].copy(), arr[:, b].copy()
+                arr[:, a], arr[:, b] = np.where(swap, hi_, lo_), np.where(swap, lo_, hi_)
+            j >>= 1
+        k <<= 1
+    return _residual_sums(o, ix, s, length)
+
+
+EMU_NS = (2, 3, 4, 8, 16, 17, 32, 64, 96, 128, 256, 512, 1000, 1024)
 
 
 @pytest.mark.parametrize("kind", stream_rows.KINDS)
@@ -300,6 +393,13 @@ def test_kernel_algorithm_emulated_equals_numpy_oracle(n, kind):
     rf_np, _, dist_np = stream_stats_batch_np(offs, szs)
     assert np.array_equal(rf, rf_np)
     assert np.array_equal(dist, dist_np)
+    # the same rows on random true lengths: positions past them are inert
+    lens = rng.integers(0, n + 1, size=m)
+    lens[:2] = (0, 1)
+    rf_l, dist_l, _ = _emulate_kernel(offs, szs, lens)
+    want = [stream_stats_batch_np(offs[i:i + 1, :k], szs[i:i + 1, :k]) for i, k in enumerate(lens)]
+    assert np.array_equal(rf_l, [x[0][0] for x in want])
+    assert np.array_equal(dist_l, [x[2][0] for x in want])
     if kind in ("ties", "contiguous", "reversed", "near-min", "near-max", "collide"):
         # spans that need no shift, runs wider than a bucket, or pairs that
         # one transposition round puts right
@@ -311,3 +411,19 @@ def test_kernel_algorithm_emulated_equals_numpy_oracle(n, kind):
         assert not fast.all()
     if kind == "mixed" and n >= 128:  # warps of 4 rows or fewer: some keep the fast branch
         assert fast.any()
+
+
+@pytest.mark.parametrize("kind", stream_rows.KINDS)
+@pytest.mark.parametrize("n", (1025, 2048, 3000))
+def test_long_row_kernel_emulated_equals_numpy_oracle(n, kind):
+    rng = np.random.default_rng(n * 17 + stream_rows.KINDS.index(kind))
+    m = 3
+    offs, szs = stream_rows.stream_rows(kind, m, n, rng)
+    rf, dist = _emulate_long_rows(offs, szs)
+    rf_np, _, dist_np = stream_stats_batch_np(offs, szs)
+    assert np.array_equal(rf, rf_np) and np.array_equal(dist, dist_np)
+    lens = np.array([0, 1 + n // 3, n - 1])
+    rf_l, dist_l = _emulate_long_rows(offs, szs, lens)
+    want = [stream_stats_batch_np(offs[i:i + 1, :k], szs[i:i + 1, :k]) for i, k in enumerate(lens)]
+    assert np.array_equal(rf_l, [x[0][0] for x in want])
+    assert np.array_equal(dist_l, [x[2][0] for x in want])

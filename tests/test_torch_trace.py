@@ -207,12 +207,13 @@ def test_fleet_program_scores_all_shards_in_one_call(monkeypatch):
     from repro_torch.core import engine_device as ed
     from repro_torch.kernels.stream_rf import ops
 
-    calls = []
+    calls, lens = [], []
     real = ops.stream_stats_op
 
-    def counted(offsets, sizes):
+    def counted(offsets, sizes, lengths=None):
         calls.append(tuple(offsets.shape))
-        return real(offsets, sizes)
+        lens.append(lengths)
+        return real(offsets, sizes, lengths)
 
     monkeypatch.setattr(ops, "stream_stats_op", counted)
     batch = _port(ref_golden_trace("mixed-burst"))
@@ -221,6 +222,8 @@ def test_fleet_program_scores_all_shards_in_one_call(monkeypatch):
     prog.run(batch)
     rows = sum(s.padded_stream_matrix()[0].shape[0] for s in shards)
     assert calls == [(rows, 128)]
+    # the shards' ragged tails are padded score-neutrally: no true lengths
+    assert lens == [None]
     prog.run(batch)  # tapes are cached: no second scoring
     assert len(calls) == 1
     for shard, tape in zip(shards, prog._tape_cache[1]):

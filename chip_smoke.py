@@ -14,13 +14,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    wrap, negative offsets, rows at INT64_MIN and INT64_MAX, the whole
    int64 range, which takes the kernel's wide branch, and packed and wide
    rows in one launch), then at widths that are not powers of two
-   (3, 17, 96, 1000: the padded branch) and above 1024 (2048, 4096, 8192:
-   the long-row kernel), with and without per-row true lengths, and check
-   that widths above the limit are refused; hold ``flash_attention`` and
-   ``ssm_scan`` against their plain versions in f32 and bf16 over the
-   reference tests' shapes, GQA/MQA, causal or not, Sq != Sk, ragged
-   lengths and the serve slice's own shapes, at the reference tests'
-   tolerances;
+   (3, 17, 96, 1000: the padded branch) and above 1024 (1025, 2048, 3000,
+   4096, 8192: the long-row kernel), ``stream_stats`` with and without
+   per-row true lengths, and check that widths above the limit are
+   refused; hold ``flash_attention`` and ``ssm_scan`` against their plain
+   versions in f32 and bf16 over the reference tests' shapes, GQA/MQA,
+   causal or not, Sq != Sk, ragged lengths and the serve slice's own
+   shapes, at the reference tests' tolerances;
 3. golden  — rebuild both golden traces (fingerprints must match), run
    ``FleetProgram`` on the card under both fixture policies within each
    fixture's ``device_tolerance`` (routing fields exact), and replay the
@@ -49,10 +49,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    equal to ``score_backend="numpy"``;
 5. timings — both stream kernels held bit-equal to their plain versions on
    every shard matrix the sweep feeds them and on their concatenation,
-   then timed at that one-launch shape (as the main path launches it, and
-   with the rows' true lengths), at the largest shard's, at
-   the whole trace's and at the sweep's one-launch shape at
-   ``stream_len=96``, beside their byte bound, their plain versions and
+   and on every shape they are timed at; timed at that one-launch shape
+   (as the main path launches it, and with the rows' true lengths), at
+   the largest shard's, at the whole trace's and at the sweep's
+   one-launch shape at ``stream_len=96``, beside their byte bound, their plain versions and
    ``torch.sort``; and the long-row kernel at the whole trace at
    ``stream_len=2048``, a row of its own;
 6. serve   — the model main path: ``serve`` of qwen3-1.7b and of
@@ -306,7 +306,7 @@ def phase_kernels(dev: torch.device) -> float:
 
 
 ANY_WIDTHS = (3, 17, 96, 1000)  # not powers of two: the padded branch
-LONG_WIDTHS = (2048, 4096, 8192)  # the long-row kernel, one block a row
+LONG_WIDTHS = (1025, 2048, 3000, 4096, 8192)  # the long-row kernel, one block a row
 
 
 def _oracle_rows(offs: np.ndarray, szs: np.ndarray, lens) -> tuple[np.ndarray, np.ndarray]:
@@ -323,10 +323,10 @@ def _oracle_rows(offs: np.ndarray, szs: np.ndarray, lens) -> tuple[np.ndarray, n
 
 def phase_any_width(dev: torch.device) -> float:
     """Widths that are not powers of two and widths above 1024, on every
-    row kind, with and without per-row true lengths: both kernels bit-equal
-    to the plain version and to the NumPy oracle; the long-row kernel
-    scores exactly the rows above 1024; widths above the limit raise.
-    Returns the largest |error|."""
+    row kind: both kernels bit-equal to the plain version and to the NumPy
+    oracle, ``stream_stats`` also with per-row true lengths; the long-row
+    kernel scores exactly the rows above 1024; widths above the limit
+    raise.  Returns the largest |error|."""
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(16)
@@ -342,11 +342,12 @@ def phase_any_width(dev: torch.device) -> float:
                     ln = None if ln_np is None else torch.from_numpy(ln_np).to(dev)
                     kernel.long_rows(reset=True)
                     rf_k, _, dist_k = ops.stream_stats_op(o, s, ln)
-                    rf_only = ops.stream_rf_op(o, s, ln)
                     rf_p, dist_p = ref.stream_stats_ref(o, s, ln)
+                    checks = [("rf", rf_k, rf_p), ("dist", dist_k, dist_p)]
+                    if ln is None:  # stream_rf_op takes no lengths
+                        checks.append(("stream_rf", ops.stream_rf_op(o, s), rf_p))
                     torch.cuda.synchronize()
-                    for label, got, want in (("rf", rf_k, rf_p), ("dist", dist_k, dist_p),
-                                             ("stream_rf", rf_only, rf_p)):
+                    for label, got, want in checks:
                         worst = max(worst, int((got - want).abs().max()))
                         if not torch.equal(got, want):
                             fail(f"{kind} ({m}, {n}) lengths={ln_np is not None}: "
@@ -356,7 +357,7 @@ def phase_any_width(dev: torch.device) -> float:
                             and np.array_equal(dist_k.cpu().numpy(), dist_np)):
                         fail(f"{kind} ({m}, {n}): kernel differs from the NumPy oracle")
                     long = kernel.long_rows(reset=True)
-                    if long != (2 * m if n > 1024 else 0):
+                    if long != ((1 + (ln is None)) * m if n > 1024 else 0):
                         fail(f"{kind} ({m}, {n}): {long} rows in the long-row kernel")
                     long_total += long
                     cases += 1
@@ -368,7 +369,7 @@ def phase_any_width(dev: torch.device) -> float:
             continue
         fail(f"width {n} above the kernel's limit was not refused")
     log(f"[kernels] any width: {cases} cases at N in {ANY_WIDTHS + LONG_WIDTHS} "
-        f"(with and without true lengths) bit-equal to the plain version and "
+        f"(stream_stats with and without true lengths) bit-equal to the plain version and "
         f"the NumPy oracle; {long_total} rows through the long-row kernel; "
         f"N > {ops.MAX_STREAM_LEN} refused ({time.perf_counter() - t0:.1f} s)")
     return float(worst)
@@ -448,8 +449,8 @@ def one_launch_matrix(shards: list[TraceBatch], stream_len: int = 128
 def check_shards(dev: torch.device, shards: list[TraceBatch]) -> int:
     """Both kernels bit-equal to their plain versions on every padded
     shard matrix of the sweep and on their concatenation, the matrix the
-    main path launches, with and without the rows' true lengths; returns
-    the largest |error|."""
+    main path launches (``stream_stats`` on every other one with the rows'
+    true lengths); returns the largest |error|."""
 
     worst = 0
     mats = [b.padded_stream_matrix() for b in shards]
@@ -462,7 +463,7 @@ def check_shards(dev: torch.device, shards: list[TraceBatch]) -> int:
         for label, got, want in (
             ("stream_stats rf", rf_k, rf_p),
             ("stream_stats dist", dist_k, dist_p),
-            ("stream_rf", ops.stream_rf_op(o, s, ln), rf_p),
+            ("stream_rf", ops.stream_rf_op(o, s), ref.stream_rf_ref(o, s)),
         ):
             if got.numel():
                 worst = max(worst, int((got - want).abs().max()))
@@ -470,10 +471,26 @@ def check_shards(dev: torch.device, shards: list[TraceBatch]) -> int:
                 what = f"shard {i}" if i < len(shards) else "one-launch matrix"
                 fail(f"sweep {what} {tuple(o.shape)}: {label} differs "
                      "from the plain version")
-    log(f"[kernels] {len(shards)} sweep shard matrices (every other one with its "
-        f"true lengths) and their concatenation {tuple(o.shape)} bit-equal to the "
+    log(f"[kernels] {len(shards)} sweep shard matrices (stream_stats on every other "
+        f"one with its true lengths) and their concatenation {tuple(o.shape)} bit-equal to the "
         "plain version")
     return worst
+
+
+def held_to_plain(o, s, ln, with_dist: bool, label: str) -> int:
+    """The wrapper bit-equal to its plain version on one timed shape;
+    returns the largest |error|."""
+
+    if with_dist:
+        rf_k, _, dist_k = ops.stream_stats_op(o, s, ln)
+        rf_p, dist_p = ref.stream_stats_ref(o, s, ln)
+        pairs = ((rf_k, rf_p), (dist_k, dist_p))
+    else:
+        pairs = ((ops.stream_rf_op(o, s), ref.stream_rf_ref(o, s)),)
+    for got, want in pairs:
+        if not torch.equal(got, want):
+            fail(f"{label} {tuple(o.shape)} differs from the plain version")
+    return max(int((got - want).abs().max()) for got, want in pairs)
 
 
 def _timed_shape(o, s, ln, with_dist: bool, key: str) -> dict:
@@ -483,7 +500,8 @@ def _timed_shape(o, s, ln, with_dist: bool, key: str) -> dict:
     plain = ref.stream_stats_ref if with_dist else ref.stream_rf_ref
     m, n = o.shape
     copies = -(-2 * L2_BYTES // (m * n * 16))
-    plain_ms, plain_ops = profiled(lambda: plain(o, s, ln))
+    args = (o, s, ln) if with_dist else (o, s)
+    plain_ms, plain_ops = profiled(lambda: plain(*args))
     lib_ms, _ = profiled(lambda: torch.sort(o, dim=1, stable=True))
     return {
         f"ms{key}": graph_ms(raw_launch(o, s, with_dist, lens=ln)),
@@ -494,7 +512,7 @@ def _timed_shape(o, s, ln, with_dist: bool, key: str) -> dict:
         f"bound_ms{key}": bound_ms(m, n, with_dist),
         f"bound_by{key}": "bytes",
         f"library_ms{key}": lib_ms,
-        f"call_ms{key}": cuda_ms(lambda: op(o, s, ln)),
+        f"call_ms{key}": cuda_ms(lambda: op(*args)),
         f"plain_device_ops{key}": plain_ops,
         f"shape{key}": [m, n],
     }
@@ -504,9 +522,9 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
                    launches: dict, any_len: dict) -> list[dict]:
     """Times at the main path's shape, the concatenation of the sweep's
     padded shard matrices (one launch for all shards); beside it the same
-    with the rows' true lengths (``_with_lengths``: the kernel's instance
-    for them, which a launch takes only where a pad cannot be
-    score-neutral), the largest shard's matrix (the shape of one launch
+    with the rows' true lengths (``_with_lengths``, ``stream_stats`` only:
+    the kernel's instance for them, which a launch takes only where a pad
+    cannot be score-neutral), the largest shard's matrix (the shape of one launch
     per shard), the whole trace as one matrix, and (``_len96``) the
     one-launch matrix of the sweep at ``stream_len=96`` (the padded
     branch: a 128-wide sort of 96 requests);
@@ -517,7 +535,7 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
     ``plain_ms``/``library_ms``: device time from the profiler;
     ``call_ms``: CUDA events per wrapper call, host overhead included.
     ``any_len`` holds the launch counts of the ``stream_len`` 96 and 2048
-    sweeps."""
+    sweeps.  Each shape is first held bit-equal to the plain version."""
 
     prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES,
                         policy="range-offset", device=dev)
@@ -539,6 +557,10 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
                  "replaces": REPLACES[name], "launches": launches[name],
                  "max_abs_err": worst}
         for key, (o, s, ln) in rows.items():
+            if ln is not None and not with_dist:
+                continue  # stream_rf_op takes no lengths
+            err = held_to_plain(o, s, ln, with_dist, name + key)
+            entry["max_abs_err"] = float(max(entry["max_abs_err"], err))
             entry.update(_timed_shape(o, s, ln, with_dist, key))
         entry["launches_len96"] = any_len[96]["launches"][name]
         entry["library_call"] = ("torch.sort(offsets, dim=1, stable=True): the "
@@ -546,15 +568,11 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
         out.append(entry)
     o, s = (torch.from_numpy(a).to(dev) for a in batch.padded_stream_matrix(2048)[:2])
     ln = None  # as the stream_len=2048 sweep launches it
-    rf_k, _, dist_k = ops.stream_stats_op(o, s, ln)
-    rf_p, dist_p = ref.stream_stats_ref(o, s, ln)
-    if not (torch.equal(rf_k, rf_p) and torch.equal(dist_k, dist_p)):
-        fail("long-row kernel differs from the plain version at (489, 2048)")
     long_entry = {"name": "stream_stats_long_rows", "route": "cuda", "source": KERNEL_SOURCE,
                   "replaces": REPLACES["stream_stats"],
                   "launches": any_len[2048]["launches"]["stream_stats"],
-                  "max_abs_err": float(max(int((rf_k - rf_p).abs().max()),
-                                           int((dist_k - dist_p).abs().max()), worst)),
+                  "max_abs_err": float(max(worst, held_to_plain(o, s, ln, True,
+                                                                "long-row kernel"))),
                   "main_path": "the sweep at stream_len=2048 (one launch, 489 rows)"}
     long_entry.update(_timed_shape(o, s, ln, True, ""))
     long_entry["library_call"] = out[0]["library_call"]
@@ -646,78 +664,6 @@ def sweep_capacity(batch: TraceBatch) -> int:
     return max(batch.total_bytes // 2 // SWEEP_NODES, 64 << 20)
 
 
-def phase_sweep(dev: torch.device, batch: TraceBatch) -> tuple[dict, int, dict, float]:
-    t_phase = time.perf_counter()
-    cap = sweep_capacity(batch)
-    lanes = SWEEP_NODES * len(SCHEMES)
-    prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES,
-                        policy="range-offset", ssd_capacity=cap, device=dev)
-    kernel.wide_rows(reset=True)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    res = prog.run(batch)  # scores every shard on the card, builds tapes
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = dict(ops.launches)
-    wide = kernel.wide_rows(reset=True)
-    if launches["stream_stats"] != 1:
-        fail(f"stream_stats launched {launches['stream_stats']} times on the "
-             "main path, expected exactly 1 (all shards in one launch)")
-    steady = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = prog.run(batch)
-        torch.cuda.synchronize()
-        steady.append(time.perf_counter() - t0)
-    t_best = min(steady)
-    t_prof, busy, n_ops = device_time(lambda: prog.run(batch))
-    totals = {s: fr.total_bytes for s, fr in res.items()}
-    for s, fr in res.items():
-        if fr.total_bytes != batch.total_bytes:
-            fail(f"{s}: sweep routed {fr.total_bytes} bytes of {batch.total_bytes}")
-        vals = [v for r in fr.node_results
-                for v in (r.io_seconds, r.total_seconds, r.blocked_seconds)]
-        if not all(math.isfinite(v) and v >= 0 for v in vals):
-            fail(f"{s}: non-finite or negative clocks in the sweep")
-    log(f"[sweep] {batch.num_requests:,} requests, {SWEEP_NODES} nodes x "
-        f"{len(SCHEMES)} schemes = {lanes} lanes, ssd_capacity {cap}")
-    log(f"[sweep] first call {t_first:.3f} s (scoring + tapes + replay), "
-        f"steady {json.dumps(steady)} s, best {t_best:.3f} s = "
-        f"{lanes / t_best:.1f} lanes/s")
-    log(f"[sweep] profiled steady run {t_prof:.3f} s: device busy "
-        f"{busy:.4f} s ({busy / t_prof:.2%}), {n_ops} device ops")
-    log(f"[sweep] launches on the main path: {json.dumps(launches)}; rows scored "
-        f"by the stream kernel's wide branch: {wide}")
-    log(f"[sweep] total bytes per scheme: {json.dumps(totals)}")
-
-    first_call_parts(dev, prog, batch, t_first)
-
-    # the same sweep on the CPU: integer fields exact, clocks to 1e-9
-    t0 = time.perf_counter()
-    cpu = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES,
-                       policy="range-offset", ssd_capacity=cap,
-                       device="cpu").run(batch)
-    worst = 0.0
-    for s in SCHEMES:
-        for a, b in zip(res[s].node_results, cpu[s].node_results):
-            for f in ("bytes_to_ssd", "bytes_to_hdd_direct", "flushes",
-                      "peak_ssd_occupancy"):
-                if getattr(a, f) != getattr(b, f):
-                    fail(f"{s}.{f}: card {getattr(a, f)} != cpu {getattr(b, f)}")
-            for f in ("io_seconds", "total_seconds", "blocked_seconds",
-                      "flush_paused_seconds"):
-                x, y = getattr(a, f), getattr(b, f)
-                rel = abs(x - y) / max(abs(y), 1e-300)
-                worst = max(worst, rel)
-                if rel > 1e-9:
-                    fail(f"{s}.{f}: card {x!r} vs cpu {y!r}")
-    log(f"[sweep] card == cpu: integer fields exact, clocks max rel diff "
-        f"{worst:.3g} (cpu run {time.perf_counter() - t0:.1f} s)")
-    log(f"[sweep] phase {time.perf_counter() - t_phase:.1f} s")
-    return launches, wide, res, t_best
-
-
-FTL_HOST_REQUESTS = 100_000  # the host FTL comparison's cut (see phase_ftl_sweep)
 INT_FIELDS = ("bytes_to_ssd", "bytes_to_hdd_direct", "flushes", "peak_ssd_occupancy")
 CLOCK_FIELDS = ("io_seconds", "total_seconds", "blocked_seconds", "flush_paused_seconds")
 
@@ -741,6 +687,80 @@ def same_within(label: str, got: dict, want: dict, rel: float = 1e-9) -> float:
     return worst
 
 
+def conserved(label: str, res: dict, total: int) -> None:
+    """Every scheme routed all ``total`` bytes, with finite clocks >= 0."""
+
+    for s, fr in res.items():
+        if fr.total_bytes != total:
+            fail(f"{label} {s}: routed {fr.total_bytes} bytes of {total}")
+        vals = [v for r in fr.node_results
+                for v in (r.io_seconds, r.total_seconds, r.blocked_seconds)]
+        if not all(math.isfinite(v) and v >= 0 for v in vals):
+            fail(f"{label} {s}: non-finite or negative clocks")
+
+
+def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
+                ) -> tuple[dict, int, dict, float, FleetProgram]:
+    """The fleet main path at real size with storage model ``ssd``: one
+    ``stream_stats`` launch, first call, best of 3 steady calls, device
+    busy share; bytes conserved and the card equal to the CPU (integer
+    fields exact, clocks within 1e-9 relative).  Returns the launch
+    counts, the wide-branch rows, the result, the best steady time and the
+    program."""
+
+    tag = "[sweep]" if ssd == "constant" else f"[{ssd}]"
+    t_phase = time.perf_counter()
+    cap = sweep_capacity(batch)
+    lanes = SWEEP_NODES * len(SCHEMES)
+    kw = dict(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
+              ssd_capacity=cap, ssd=ssd)
+    prog = FleetProgram(device=dev, **kw)
+    kernel.wide_rows(reset=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = prog.run(batch)  # scores every shard on the card, builds tapes
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    wide = kernel.wide_rows(reset=True)
+    if launches["stream_stats"] != 1:
+        fail(f"{tag} stream_stats launched {launches['stream_stats']} times on the "
+             "main path, expected exactly 1 (all shards in one launch)")
+    steady = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = prog.run(batch)
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t0)
+    t_best = min(steady)
+    t_prof, busy, n_ops = device_time(lambda: prog.run(batch))
+    conserved(tag, res, batch.total_bytes)
+    totals = {s: fr.total_bytes for s, fr in res.items()}
+    log(f"{tag} ssd={ssd!r}, {batch.num_requests:,} requests, {SWEEP_NODES} nodes x "
+        f"{len(SCHEMES)} schemes = {lanes} lanes, ssd_capacity {cap}")
+    log(f"{tag} first call {t_first:.3f} s (scoring + tapes + replay), "
+        f"steady {json.dumps(steady)} s, best {t_best:.3f} s = "
+        f"{lanes / t_best:.1f} lanes/s")
+    log(f"{tag} profiled steady run {t_prof:.3f} s: device busy "
+        f"{busy:.4f} s ({busy / t_prof:.2%}), {n_ops} device ops")
+    log(f"{tag} launches on the main path: {json.dumps(launches)}; rows scored "
+        f"by the stream kernel's wide branch: {wide}")
+    log(f"{tag} total bytes per scheme: {json.dumps(totals)}")
+
+    if ssd == "constant":
+        first_call_parts(dev, prog, batch, t_first)
+
+    t0 = time.perf_counter()
+    worst = same_within(f"{tag} card vs cpu", res, FleetProgram(device="cpu", **kw).run(batch))
+    log(f"{tag} card == cpu: integer fields exact, clocks max rel diff "
+        f"{worst:.3g} (cpu run {time.perf_counter() - t0:.1f} s)")
+    log(f"{tag} sweep and card-vs-cpu {time.perf_counter() - t_phase:.1f} s")
+    return launches, wide, res, t_best, prog
+
+
+FTL_HOST_REQUESTS = 100_000  # the host FTL comparison's cut (see phase_ftl_sweep)
+
+
 def within_device_tolerances(label: str, host: dict, device: dict) -> None:
     """Each scheme's device-engine fleet within ``DEVICE_TOLERANCES`` of the
     host batched engine's (the reference's acceptance comparison)."""
@@ -754,71 +774,35 @@ def within_device_tolerances(label: str, host: dict, device: dict) -> None:
                  "batched engine:\n" + "\n".join(diffs[:10]))
 
 
-def conserved(label: str, res: dict, total: int) -> None:
-    for s, fr in res.items():
-        if fr.total_bytes != total:
-            fail(f"{label} {s}: routed {fr.total_bytes} bytes of {total}")
-        vals = [v for r in fr.node_results for v in (r.io_seconds, r.total_seconds)]
-        if not all(math.isfinite(v) and v >= 0 for v in vals):
-            fail(f"{label} {s}: non-finite or negative clocks")
-
-
-def ftl_gc(prog: FleetProgram) -> tuple[float, float]:
-    """GC relocations (pages) over every lane of the last run, and the
+def ftl_gc(prog: FleetProgram, batch: TraceBatch) -> tuple[dict, float]:
+    """GC relocations (pages) per scheme over its lanes, read from the
+    engine's raw lane outputs of one more replay of ``batch``, and the
     write amplification (host pages + relocated) / host pages."""
 
-    out = prog.last_lanes
-    reloc = float(out["ftl_reloc_pages"].sum())
+    out, _ = prog._replay(batch)
+    reloc = {s: float(out["ftl_reloc_pages"][i * prog.num_nodes:(i + 1) * prog.num_nodes].sum())
+             for i, s in enumerate(prog.schemes)}
     host = float(out["bytes_to_ssd"].sum()) / prog.ssd.page_size
-    return reloc, (host + reloc) / host if host else 1.0
+    total = sum(reloc.values())
+    return reloc, (host + total) / host if host else 1.0
 
 
 def phase_ftl_sweep(dev: torch.device, batch: TraceBatch) -> dict:
     """The sweep with the page-mapped FTL SSD (``ssd="ftl"``): same trace,
-    lanes and ``ssd_capacity``; bytes conserved, card equal to the CPU, and
-    the device engine within ``DEVICE_TOLERANCES`` of the host batched
-    engine with the FTL.  The host engine charges the FTL one request at a
-    time (its bit-parity contract), minutes of host time over the full
-    trace, so that comparison alone runs on a trace cut to
-    ``FTL_HOST_REQUESTS`` requests, its capacity cut in proportion (half a
-    node's share)."""
+    lanes and ``ssd_capacity`` and the same gates as :func:`phase_sweep`,
+    then GC relocations and write amplification, and the device engine
+    within ``DEVICE_TOLERANCES`` of the host batched engine with the FTL.
+    The host engine charges the FTL one request at a time (its bit-parity
+    contract), minutes of host time over the full trace, so that
+    comparison alone runs on a trace cut to ``FTL_HOST_REQUESTS``
+    requests, its capacity cut in proportion (half a node's share)."""
 
     t_phase = time.perf_counter()
-    cap = sweep_capacity(batch)
-    prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
-                        ssd_capacity=cap, ssd="ftl", device=dev)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    res = prog.run(batch)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = dict(ops.launches)
-    if launches["stream_stats"] != 1:
-        fail(f"ftl sweep: stream_stats launched {launches['stream_stats']} times, expected 1")
-    steady = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = prog.run(batch)
-        torch.cuda.synchronize()
-        steady.append(time.perf_counter() - t0)
-    t_prof, busy, n_ops = device_time(lambda: prog.run(batch))
-    conserved("ftl sweep", res, batch.total_bytes)
-    reloc, wa = ftl_gc(prog)
-    per_scheme = {s: float(prog.last_lanes["ftl_reloc_pages"][i * SWEEP_NODES:(i + 1) * SWEEP_NODES].sum())
-                  for i, s in enumerate(SCHEMES)}
-    log(f"[ftl] ssd='ftl', {SWEEP_NODES} nodes x {len(SCHEMES)} schemes, ssd_capacity {cap}")
-    log(f"[ftl] first call {t_first:.3f} s, steady {json.dumps(steady)} s, best "
-        f"{min(steady):.3f} s; profiled steady run {t_prof:.3f} s: device busy "
-        f"{busy:.4f} s ({busy / t_prof:.2%}), {n_ops} device ops")
-    log(f"[ftl] launches on the path: {json.dumps(launches)}")
+    launches, _, _, _, prog = phase_sweep(dev, batch, ssd="ftl")
+    per_scheme, wa = ftl_gc(prog, batch)
+    reloc = sum(per_scheme.values())
     log(f"[ftl] GC relocations (ftl_reloc) {reloc:.1f} pages over all lanes "
         f"{json.dumps(per_scheme)}; write amplification {wa:.6f}")
-    t0 = time.perf_counter()
-    cpu = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
-                       ssd_capacity=cap, ssd="ftl", device="cpu").run(batch)
-    worst = same_within("ftl sweep card vs cpu", res, cpu)
-    log(f"[ftl] card == cpu: integer fields exact, clocks max rel diff {worst:.3g} "
-        f"(cpu run {time.perf_counter() - t0:.1f} s)")
 
     small = sweep_trace(FTL_HOST_REQUESTS)
     small_cap = small.total_bytes // 2 // SWEEP_NODES
@@ -829,8 +813,8 @@ def phase_ftl_sweep(dev: torch.device, batch: TraceBatch) -> dict:
     small_prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
                               ssd_capacity=small_cap, ssd="ftl", device=dev)
     on_card = small_prog.run(small)
-    small_reloc, small_wa = ftl_gc(small_prog)
     t_card = time.perf_counter() - t0
+    small_reloc, small_wa = ftl_gc(small_prog, small)
     t0 = time.perf_counter()
     host = {s: FleetSimulator(num_nodes=SWEEP_NODES, scheme=s, policy="range-offset",
                               ssd_capacity=small_cap, ssd="ftl", engine="batched",
@@ -839,8 +823,8 @@ def phase_ftl_sweep(dev: torch.device, batch: TraceBatch) -> dict:
     within_device_tolerances("ftl cut", host, on_card)
     log(f"[ftl] cut: FleetProgram within DEVICE_TOLERANCES of FleetSimulator("
         f"engine='batched', ssd='ftl') over all {len(SCHEMES) * SWEEP_NODES} node "
-        f"replays; GC relocations {small_reloc:.1f} pages, write amplification "
-        f"{small_wa:.6f}; FleetProgram {t_card:.2f} s, host {t_host:.2f} s")
+        f"replays; GC relocations {sum(small_reloc.values()):.1f} pages, write "
+        f"amplification {small_wa:.6f}; FleetProgram {t_card:.2f} s, host {t_host:.2f} s")
     log(f"[ftl] phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "reloc": reloc, "wa": wa}
 
@@ -1450,7 +1434,7 @@ def main() -> int:
     model_worst = check_model_kernels(dev)
     phase_golden(dev)
     batch = sweep_trace(SWEEP_REQUESTS)
-    launches, wide, swept, t_sweep = phase_sweep(dev, batch)
+    launches, wide, swept, t_sweep, _ = phase_sweep(dev, batch)
     ftl = phase_ftl_sweep(dev, batch)
     host = phase_host_engines(dev, batch, swept, t_sweep)
     any_len = phase_any_len_sweeps(dev, batch)

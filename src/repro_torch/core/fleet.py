@@ -315,15 +315,10 @@ class FleetProgram:
         self._tape_cache = (batch, tapes, per_app)
         return tapes, per_app
 
-    def run(self, trace: TraceBatch | Sequence[TraceItem]) -> dict[str, FleetResult]:
-        """Replay every ``scheme x node`` lane in one device program.
+    def _replay(self, batch: TraceBatch) -> tuple[dict, list]:
+        """``replay_lanes``' raw per-lane outputs (FTL relocations and live
+        pages too) and each shard's bytes per app."""
 
-        Accuracy contract: each lane is within the device engine's
-        ``DEVICE_TOLERANCES`` tiers of the batched NumPy oracle, and
-        bit-equal to replaying that lane alone.
-        """
-
-        batch = trace if isinstance(trace, TraceBatch) else TraceBatch.from_items(trace)
         tapes, per_app = self._tapes(batch)
         n = self.num_nodes
         # lane order is scheme-major: lane s * N + n replays shard n under
@@ -340,8 +335,19 @@ class FleetProgram:
         ])
         out = ed.replay_lanes(events, lanes, state0, hdd=self.hdd,
                               interference=self.interference, device=self.device)
-        # the raw per-lane outputs (FTL relocations and live pages too)
-        self.last_lanes = out
+        return out, per_app
+
+    def run(self, trace: TraceBatch | Sequence[TraceItem]) -> dict[str, FleetResult]:
+        """Replay every ``scheme x node`` lane in one device program.
+
+        Accuracy contract: each lane is within the device engine's
+        ``DEVICE_TOLERANCES`` tiers of the batched NumPy oracle, and
+        bit-equal to replaying that lane alone.
+        """
+
+        batch = trace if isinstance(trace, TraceBatch) else TraceBatch.from_items(trace)
+        out, per_app = self._replay(batch)
+        n = self.num_nodes
         return {
             scheme: FleetResult(
                 scheme=scheme, policy=self.policy, num_nodes=n,

@@ -6,9 +6,10 @@
 * :func:`random_percentage_op` — ``rf / (N - 1)`` in float64.
 
 Rows may be any length N in [2, :data:`MAX_STREAM_LEN`]; an optional
-``lengths`` vector gives each row's true length (a trace's ragged last
-stream), and positions beyond it count for nothing.  Above the limit the
-wrappers raise; score such streams with ``score_backend="numpy"``.
+``lengths`` vector of :func:`stream_stats_op` gives each row's true length
+(a trace's ragged last stream), and positions beyond it count for nothing.
+Above the limit the wrappers raise; score such streams with
+``score_backend="numpy"``.
 
 On a CUDA tensor they launch the hand-written kernel
 (``csrc/stream_rf.cu``) on the current stream, and raise if it cannot be
@@ -128,16 +129,14 @@ def stream_stats_op(
     return rf, _percentage(rf, offsets.shape[1], lengths), dist
 
 
-def stream_rf_op(offsets: torch.Tensor, sizes,
-                 lengths: torch.Tensor | None = None) -> torch.Tensor:
+def stream_rf_op(offsets: torch.Tensor, sizes) -> torch.Tensor:
     """``(M, N)`` int64 -> Eq. 1 seek counts ``(M,)`` int64."""
 
-    return _run(offsets, sizes, lengths, with_dist=False)[0]
+    return _run(offsets, sizes, None, with_dist=False)[0]
 
 
-def random_percentage_op(offsets: torch.Tensor, sizes,
-                         lengths: torch.Tensor | None = None) -> torch.Tensor:
+def random_percentage_op(offsets: torch.Tensor, sizes) -> torch.Tensor:
     """``(M, N)`` int64 -> ``rf / (N - 1)`` ``(M,)`` float64."""
 
-    rf = stream_rf_op(offsets, sizes, lengths)
-    return _percentage(rf, offsets.shape[1], lengths)
+    rf = stream_rf_op(offsets, sizes)
+    return rf.to(torch.float64) / (offsets.shape[1] - 1)

@@ -26,11 +26,10 @@ def stream_stats_ref(
     return rf, dist
 
 
-def stream_rf_ref(offsets: torch.Tensor, sizes: torch.Tensor,
-                  lengths: torch.Tensor | None = None) -> torch.Tensor:
+def stream_rf_ref(offsets: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     """``(M, N)`` int64 -> rf sums ``(M,)`` int64."""
 
-    return stream_stats_ref(offsets, sizes, lengths)[0]
+    return stream_stats_ref(offsets, sizes)[0]
 
 
 def threshold_quantile_ref(

@@ -214,7 +214,7 @@ def ftl_sweeps():
             got = prog.run(batch)
             want = R.run_fleet_schemes(ref_golden_trace(wl), num_nodes=4, policy=policy,
                                        ssd_capacity=cap, ssd="ftl", engine="batched")
-            runs[wl, policy] = got, want, prog.last_lanes
+            runs[wl, policy] = got, want, prog._replay(batch)[0]
     return runs
 
 

@@ -68,8 +68,8 @@ def test_ftl_gc_fires_at_4_mib():
             runs.append(sim.ssd.stats()["gc_runs"])
         prog = FleetProgram(num_nodes=1, schemes=SCHEMES[1:], device="cpu",
                             **_ssd_kw("ftl", workload))
-        prog.run(golden_trace(workload))
-        relocs.append(float(prog.last_lanes["ftl_reloc_pages"].sum()))
+        lanes, _ = prog._replay(golden_trace(workload))
+        relocs.append(float(lanes["ftl_reloc_pages"].sum()))
     assert max(runs) > 0 and max(relocs) > 0, (runs, relocs)
 
 

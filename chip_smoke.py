@@ -45,6 +45,17 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``DEVICE_TOLERANCES`` of the sweep; ``run_schemes`` with the device and
    the batched engine on both golden workloads (card equal to the CPU);
    the 16 golden fixtures replayed exactly by the batched engine;
+   service — ``BurstBufferService`` on the card, every window scored by
+   the stream kernel: (a) the reference's service benchmark (2 GiB of
+   four IOR apps, 8,192 requests at 2,000 req/s, 8 nodes) healthy and
+   with one crash for each scheme, and a scripted scenario with every
+   fault kind (ssdup+, ``ssd="ftl"``: crash with backlog replay, slow
+   lane and rebalance, SSD degradation, a stall long enough to rejoin,
+   admission redirect); (b) the sweep's trace at 50,000 req/s over 64
+   nodes, healthy and with one crash, each scheme.  Gates: byte ledgers
+   conserved; one ``stream_stats`` launch a run plus one a resharding
+   failover; each run equal to the same run scored by the NumPy oracle;
+   (b)'s healthy node results equal to ``FleetSimulator`` above;
    any-len — the sweep at ``stream_len`` 96 and 2048, one launch each,
    equal to ``score_backend="numpy"``;
 5. timings — both stream kernels held bit-equal to their plain versions on
@@ -110,6 +121,11 @@ from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as ssm_ref  # noqa: E402
 from repro_torch.kernels.stream_rf import kernel, ops, ref  # noqa: E402
 from repro_torch.launch.serve import pad_cache, serve  # noqa: E402
+from repro_torch.core.workloads import MiB, ior, mixed, relabel  # noqa: E402
+from repro_torch.service import BurstBufferService, FaultInjector  # noqa: E402
+from repro_torch.service import loop as service_loop  # noqa: E402
+from repro_torch.service import poisson_arrivals, scripted  # noqa: E402
+from repro_torch.testing.service import ReshardCountingService, same_service_result  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.testing import golden  # noqa: E402
@@ -889,7 +905,219 @@ def phase_host_engines(dev: torch.device, batch: TraceBatch, swept: dict,
     log(f"[host] 16 golden fixtures replayed exactly through FleetSimulator("
         f"engine='batched') on the card ({time.perf_counter() - t0:.2f} s)")
     log(f"[host] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "seconds": t_host}
+    return {"launches": launches, "seconds": t_host, "results": host}
+
+
+# -- the online service ---------------------------------------------------
+
+SERVICE_SCHEMES = SCHEMES
+# (a) the reference's service benchmark at its default size: four IOR apps
+# of 512 MiB, 256 KiB requests, Poisson arrivals at 2,000 req/s, 8 nodes
+SERVICE_A_APP_BYTES = 512 * MiB
+SERVICE_A_RATE, SERVICE_A_NODES = 2000.0, 8
+# (b) the sweep's trace, served: Poisson arrivals at 50,000 req/s, 64 nodes
+SERVICE_B_RATE = 50_000.0
+CRASH_KW = dict(heartbeat_timeout=2.0, epoch_seconds=0.5)
+
+
+def service_load_a() -> TraceBatch:
+    """``benchmarks/bench_service.py``'s offered load at 2 GiB."""
+
+    apps = [
+        relabel(ior("segmented-contiguous", 8, total_bytes=SERVICE_A_APP_BYTES, seed=1),
+                app_id=0, file_id=0),
+        relabel(ior("segmented-random", 8, total_bytes=SERVICE_A_APP_BYTES, seed=2),
+                app_id=1, file_id=1),
+        relabel(ior("strided", 32, total_bytes=SERVICE_A_APP_BYTES, seed=3),
+                app_id=2, file_id=2),
+        relabel(ior("segmented-random", 16, total_bytes=SERVICE_A_APP_BYTES, seed=4),
+                app_id=3, file_id=3),
+    ]
+    load = mixed(*apps, burst_requests=512)
+    return poisson_arrivals(TraceBatch.from_items(load.trace), rate_rps=SERVICE_A_RATE, seed=7)
+
+
+class ScoringCalls:
+    """Within the block, every scoring call of the service (one launch of
+    the stream kernel each) is timed with CUDA events and its batches
+    kept; the service's own function is put back on leaving."""
+
+    def __enter__(self):
+        self.calls = []
+        self.real = service_loop._score_shards_kernel
+
+        def timed(batches, stream_len, device):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(batches, stream_len, device)
+            end.record()
+            end.synchronize()
+            self.calls.append({"batches": list(batches), "ms": start.elapsed_time(end),
+                               "rows": sum(len(sc) for sc in out)})
+            return out
+
+        service_loop._score_shards_kernel = timed
+        return self
+
+    def __exit__(self, *exc):
+        service_loop._score_shards_kernel = self.real
+
+
+def serve_once(dev: torch.device, label: str, batch: TraceBatch, **kw) -> dict:
+    """One service run on the card, held to its gates: the byte ledger
+    conserved (gate 1), ``stream_stats`` launched once plus once a
+    resharding failover (gate 3), and the same ``ServiceResult`` from the
+    run scored by the NumPy oracle (gate 4).  Returns the result, its
+    numbers and the scoring calls."""
+
+    svc = ReshardCountingService(device=dev, **kw)
+    ops.reset_launches()
+    with ScoringCalls() as scoring:
+        t0 = time.perf_counter()
+        res = svc.run(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    m = res.metrics
+    violations = m.conservation_violations()
+    if violations:
+        fail(f"[service] {label}: byte ledger violated: {violations}")
+    if launches["stream_stats"] != 1 + svc.reshards or len(scoring.calls) != 1 + svc.reshards:
+        fail(f"[service] {label}: stream_stats launched {launches['stream_stats']} times "
+             f"({len(scoring.calls)} scoring calls), expected 1 + {svc.reshards} failovers "
+             "that resharded pending windows")
+    t0 = time.perf_counter()
+    oracle = BurstBufferService(score_backend="numpy", device=dev, **kw).run(batch)
+    t_oracle = time.perf_counter() - t0
+    if not same_service_result(res, oracle):
+        fail(f"[service] {label}: the kernel-scored run differs from score_backend='numpy'")
+    out = {
+        "wall_s": wall, "oracle_wall_s": t_oracle, "launches": launches["stream_stats"],
+        "reshards": svc.reshards, "windows": sum(c["rows"] for c in scoring.calls),
+        "scoring_call_ms": [c["ms"] for c in scoring.calls],
+        "throughput_mbs": m.throughput_mbs, "p99_latency": m.p99_latency,
+        "recovery_seconds": m.recovery_seconds, "makespan_seconds": m.makespan_seconds,
+        "replayed_bytes": m.replayed_bytes, "stranded_bytes": m.stranded_bytes,
+        "rebalanced_bytes": m.rebalanced_bytes, "redirected_bytes": m.redirected_bytes,
+        "faults": [(f.kind, f.node, f.detected_at, f.recovered_at) for f in m.faults],
+    }
+    log(f"[service] {label}: {wall:.3f} s wall ({t_oracle:.3f} s scored by numpy), "
+        f"{out['windows']} windows scored in {launches['stream_stats']} launch(es) "
+        f"({svc.reshards} resharding failover(s)); scoring calls "
+        f"{json.dumps(out['scoring_call_ms'])} ms = "
+        f"{sum(out['scoring_call_ms']) / 1e3 / wall:.4%} of the wall; "
+        f"throughput_mbs {m.throughput_mbs!r}, p99_latency {m.p99_latency!r} s, "
+        f"recovery_seconds {m.recovery_seconds!r}, makespan_seconds {m.makespan_seconds!r}, "
+        f"replayed {m.replayed_bytes}, stranded {m.stranded_bytes}, "
+        f"rebalanced {m.rebalanced_bytes}, redirected {m.redirected_bytes} bytes; "
+        f"faults {json.dumps(out['faults'])}")
+    out["result"], out["first_call_batches"] = res, scoring.calls[0]["batches"]
+    return out
+
+
+def serve_schemes(dev: torch.device, tag: str, batch: TraceBatch, nodes: int, cap: int
+                  ) -> dict:
+    """Each scheme healthy, and with one crash on node ``nodes // 2`` at
+    25 % of the arrival horizon; returns label -> :func:`serve_once`."""
+
+    kw = dict(num_nodes=nodes, policy="range-offset", ssd_capacity=cap)
+    crash = FaultInjector.crash_at(0.25 * float(batch.times[-1]), nodes // 2)
+    runs = {}
+    for s in SERVICE_SCHEMES:
+        runs[f"{tag}_{s}_healthy"] = serve_once(dev, f"{tag} {s} healthy", batch, scheme=s, **kw)
+        runs[f"{tag}_{s}_crash"] = serve_once(dev, f"{tag} {s} crash", batch, scheme=s,
+                                              injector=crash, **CRASH_KW, **kw)
+    return runs
+
+
+def scoring_kernel_ms(dev: torch.device, batches: list[TraceBatch]) -> tuple[float, list]:
+    """Device time of the stream kernel alone on a run's scoring matrix
+    (raw launches in a CUDA graph), held bit-equal to its plain version
+    first; returns the time and the matrix shape."""
+
+    o_np, s_np, _ = one_launch_matrix(batches)
+    o, s = torch.from_numpy(o_np).to(dev), torch.from_numpy(s_np).to(dev)
+    held_to_plain(o, s, None, True, "service scoring matrix")
+    return graph_ms(raw_launch(o, s, True)), list(o.shape)
+
+
+def phase_service(dev: torch.device, sweep: TraceBatch, host_results: dict) -> dict:
+    """The online service on the card, its windows scored by the stream
+    kernel: (a) the reference's service benchmark and a scripted scenario
+    with every fault kind, (b) the sweep's trace served on 64 nodes.  Gates
+    in :func:`serve_once`, and (gate 2) each healthy run of (b) equal,
+    node for node, to ``FleetSimulator(engine="batched")`` on the sweep."""
+
+    t_phase = time.perf_counter()
+    a = service_load_a()
+    cap_a = max(a.total_bytes // 2 // SERVICE_A_NODES, 64 * MiB)
+    horizon = float(a.times[-1])
+    log(f"[service] (a) {a.num_requests:,} requests, {a.total_bytes} bytes over "
+        f"{horizon:.3f} s, {SERVICE_A_NODES} nodes, range-offset, ssd_capacity {cap_a}")
+    runs = serve_schemes(dev, "a", a, SERVICE_A_NODES, cap_a)
+    script = scripted((0.6 * horizon, "crash", 3), (0.1 * horizon, "slow", 2, 3.0),
+                      (0.1 * horizon, "ssd_degrade", 6, 0.5),
+                      (0.3 * horizon, "stall", 1, 1.0, 4.0))
+    every = serve_once(dev, "a every fault kind (ssdup+, ftl)", a, scheme="ssdup+", ssd="ftl",
+                       num_nodes=SERVICE_A_NODES, policy="range-offset", ssd_capacity=cap_a,
+                       injector=script, replay=True, admission_occupancy=0.9,
+                       admission_action="redirect", **CRASH_KW)
+    kinds = {f[0] for f in every["faults"]}
+    stall = [f for f in every["faults"] if f[0] == "stall"]
+    if (kinds != {"crash", "slow", "ssd_degrade", "stall"} or not every["rebalanced_bytes"]
+            or not every["redirected_bytes"] or not every["replayed_bytes"]
+            or not stall or stall[0][3] is None):
+        fail("[service] the scripted scenario did not exercise every fault kind, a "
+             "rebalance, admission redirect, backlog replay and a rejoin")
+    runs["a_every_fault_kind"] = every
+
+    b = poisson_arrivals(sweep, rate_rps=SERVICE_B_RATE, seed=7)
+    cap_b = sweep_capacity(b)
+    log(f"[service] (b) {b.num_requests:,} requests, {b.total_bytes} bytes offered at "
+        f"{SERVICE_B_RATE:.0f} req/s ({b.total_bytes / float(b.times[-1]) / 1e9:.3f} GB/s) "
+        f"over {float(b.times[-1]):.3f} s, {SWEEP_NODES} nodes, range-offset, "
+        f"ssd_capacity {cap_b}")
+    runs_b = serve_schemes(dev, "b", b, SWEEP_NODES, cap_b)
+    for s in SERVICE_SCHEMES:
+        res = runs_b[f"b_{s}_healthy"]["result"]
+        if res.metrics.rebalanced_bytes:
+            # no fault was injected, but the straggler rule fired on the
+            # lanes' own imbalance and moved windows, so the lanes' work is
+            # not the offline fleet's: hold the identity on the same run
+            # with the straggler rule off
+            log(f"[service] (b) {s} healthy: the straggler rule moved "
+                f"{res.metrics.rebalanced_bytes} bytes; the identity is held on the same run "
+                "with straggler_factor=inf")
+            res = BurstBufferService(scheme=s, num_nodes=SWEEP_NODES, policy="range-offset",
+                                     ssd_capacity=cap_b, straggler_factor=math.inf,
+                                     device=dev).run(b)
+            if res.metrics.rebalanced_bytes or res.metrics.conservation_violations():
+                fail(f"[service] (b) {s}: a run without the straggler rule rebalanced or "
+                     "broke its ledger")
+        if res.node_results != host_results[s].node_results:
+            fail(f"[service] (b) {s} healthy: node results differ from "
+                 "FleetSimulator(engine='batched') on the sweep")
+    log("[service] (b) every healthy run's node results (without rebalancing) == "
+        "FleetSimulator(engine='batched') on the sweep, bit for bit")
+    runs.update(runs_b)
+
+    kernel_ms = {}
+    for tag in ("a", "b"):
+        run = runs[f"{tag}_ssdup+_healthy"]
+        ms, shape = scoring_kernel_ms(dev, run["first_call_batches"])
+        kernel_ms[tag] = {"kernel_ms": ms, "shape": shape,
+                          "share_of_wall": ms / 1e3 / run["wall_s"],
+                          "scoring_call_ms": run["scoring_call_ms"][0]}
+        log(f"[service] ({tag}) the scoring launch of a healthy run: kernel {ms:.4f} ms on "
+            f"{shape} = {ms / 1e3 / run['wall_s']:.5%} of the run's {run['wall_s']:.3f} s "
+            f"wall; the whole scoring call (matrix, copies, readback) "
+            f"{run['scoring_call_ms'][0]:.3f} ms")
+    summary = {k: {f: v for f, v in r.items() if f not in ("result", "first_call_batches")}
+               for k, r in runs.items()}
+    log(f"[service] runs {json.dumps(summary)}")
+    log(f"[service] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {k: r["launches"] for k, r in runs.items()}, "kernel": kernel_ms}
 
 
 def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
@@ -1437,11 +1665,14 @@ def main() -> int:
     launches, wide, swept, t_sweep, _ = phase_sweep(dev, batch)
     ftl = phase_ftl_sweep(dev, batch)
     host = phase_host_engines(dev, batch, swept, t_sweep)
+    service = phase_service(dev, batch, host["results"])
     any_len = phase_any_len_sweeps(dev, batch)
     kernels = kernel_timings(dev, batch, worst, launches, any_len)
     kernels[0]["main_path_wide_rows"] = wide
     kernels[0]["launches_ftl_sweep"] = ftl["launches"]["stream_stats"]
     kernels[0]["launches_host_engines"] = host["launches"]["stream_stats"]
+    kernels[0]["launches_service"] = service["launches"]
+    kernels[0]["service_scoring"] = service["kernel"]
     model_launches = {}
     for arch in SERVE_ARCHS:
         res = phase_serve(dev, arch)

@@ -13,10 +13,13 @@ fleet sweeps.
 * replay       — :mod:`.simulator` (per-request and batched host engines)
                  and :mod:`.engine_device` (the transition over lanes)
 * fleet        — :mod:`.fleet` (``FleetSimulator``, ``FleetProgram``)
+* real bytes   — :mod:`.burst_buffer` (``BurstBufferWriter``: the same
+                 machinery over a fast-tier and a slow-tier directory)
 """
 
 from .adaptive import AdaptiveThreshold, StaticWatermarkThreshold
 from .avl import AVLTree, Extent
+from .burst_buffer import BurstBufferWriter
 from .device_model import (
     STORAGE_BACKENDS,
     HDDModel,
@@ -45,10 +48,11 @@ from .random_factor import (
 from .redirector import DataRedirector, Device, RoutedStream
 from .simulator import IONodeSimulator, SimResult, run_schemes
 from .trace import Gap, StreamScores, TraceBatch, compute_stream_scores
-from .workloads import KiB, MiB, GiB, Workload, hpio, ior, mixed, mpi_tile_io, relabel
+from .workloads import (GiB, KiB, MiB, Workload, checkpoint_wave, hpio, ior, mixed,
+                        mpi_tile_io, relabel)
 
 __all__ = [
-    "AVLTree", "AdaptiveThreshold", "DEFAULT_STREAM_LEN", "DEVICE_TOLERANCES",
+    "AVLTree", "AdaptiveThreshold", "BurstBufferWriter", "DEFAULT_STREAM_LEN", "DEVICE_TOLERANCES",
     "DataRedirector", "Device", "Extent", "ExtentIndex", "FTLModel",
     "FleetProgram", "FleetResult", "FleetSimulator", "FlushState", "Gap",
     "GiB", "HDDModel", "INDEX_BACKENDS", "IONodeSimulator",
@@ -56,7 +60,7 @@ __all__ = [
     "Request", "RoutedStream", "SSDModel", "STORAGE_BACKENDS", "SimResult",
     "SingleRegionBuffer", "StaticWatermarkThreshold", "StorageModel",
     "StreamGrouper", "StreamScores", "TraceBatch", "TwoRegionPipeline",
-    "Workload", "clone_storage", "compute_stream_scores", "hpio", "ior",
+    "Workload", "checkpoint_wave", "clone_storage", "compute_stream_scores", "hpio", "ior",
     "make_index", "make_storage_model", "mixed", "mpi_tile_io",
     "random_factor_batch", "random_factor_sum", "random_percentage",
     "random_percentage_batch", "relabel", "replay_lanes", "run_fleet_schemes",

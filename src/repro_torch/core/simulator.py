@@ -470,15 +470,19 @@ class IONodeSimulator:
         app_ids: np.ndarray,
         *,
         force_hdd: bool = False,
+        scores: tuple[int, float, int] | None = None,
     ) -> float:
         """Score and replay one request window; returns the service time
         (clock delta) it consumed.
 
-        The window is scored with the same numpy oracle call the offline
-        engine uses (full windows and the <``stream_len`` trailing
-        partial alike), so session replay stays bit-exact.  ``force_hdd``
-        is admission control's redirect-to-HDD: the detector still sees
-        the stream, but its bytes bypass the burst buffer.
+        ``scores`` is the window's ``(seek count, random percentage, seek
+        distance)`` when it was scored beforehand (the service scores all
+        its windows in one launch); ``None`` scores it here with the same
+        numpy oracle call the offline engine uses (full windows and the
+        <``stream_len`` trailing partial alike), so session replay stays
+        bit-exact either way.  ``force_hdd`` is admission control's
+        redirect-to-HDD: the detector still sees the stream, but its bytes
+        bypass the burst buffer.
         """
 
         st = self.session
@@ -492,7 +496,9 @@ class IONodeSimulator:
         offsets = np.asarray(offsets, dtype=np.int64)
         sizes = np.asarray(sizes, dtype=np.int64)
         file_ids = np.asarray(file_ids, dtype=np.int64)
-        rf, pct, dist = stream_stats_batch_np(offsets[None, :], sizes[None, :])
+        if scores is None:
+            rf, pct, dist = stream_stats_batch_np(offsets[None, :], sizes[None, :])
+            scores = (rf[0], pct[0], dist[0])
         nbytes = int(sizes.sum())
         apps, inverse = np.unique(np.asarray(app_ids), return_inverse=True)
         sums = np.zeros(len(apps), dtype=np.int64)
@@ -503,9 +509,9 @@ class IONodeSimulator:
         self._replay_stream(
             st, offsets, sizes, file_ids,
             nbytes=nbytes,
-            pct=float(pct[0]),
-            seeks=int(rf[0]),
-            dist=int(dist[0]),
+            pct=float(scores[1]),
+            seeks=int(scores[0]),
+            dist=int(scores[2]),
             force_hdd=force_hdd,
         )
         return st.clock - t0

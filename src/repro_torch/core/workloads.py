@@ -244,6 +244,50 @@ def mixed(
     )
 
 
+def checkpoint_wave(
+    nproc: int,
+    waves: int = 4,
+    bytes_per_wave: int = 2 * GiB,
+    compute_seconds: float = 30.0,
+    request_size: int = DEFAULT_REQUEST,
+    rotate_files: int = 2,
+    seed: int = 0,
+    app_id: int = 0,
+    file_id: int = 0,
+) -> Workload:
+    """Checkpoint-burst workload: after every ``compute_seconds`` of
+    computation all ``nproc`` processes dump their checkpoint segment at
+    once (a segmented-contiguous burst), with a :class:`~.trace.Gap`
+    compute phase between bursts.  Files rotate over ``rotate_files``
+    handles (double-buffered checkpoints), so wave ``w`` overwrites the
+    extents wave ``w - rotate_files`` wrote."""
+
+    if waves < 1:
+        raise ValueError(f"waves must be >= 1, got {waves}")
+    if rotate_files < 1:
+        raise ValueError(f"rotate_files must be >= 1, got {rotate_files}")
+    from .trace import Gap  # local: keeps this module free of torch
+
+    rng = np.random.default_rng(seed)
+    items: list = []
+    t = 0.0
+    total = 0
+    for w in range(waves):
+        if w:
+            items.append(Gap(compute_seconds))
+        seqs = _segmented_contiguous_offsets(nproc, bytes_per_wave, request_size)
+        burst = merge_arrivals(
+            seqs, request_size, rng,
+            skew=contention_skew(nproc) * 0.25,
+            app_id=app_id, file_id=file_id + (w % rotate_files),
+            start_time=t,
+        )
+        items.extend(burst)
+        total += len(burst) * request_size
+        t = (burst[-1].time if burst else t) + compute_seconds
+    return Workload(f"ckpt-{nproc}p-{waves}w", tuple(items), total, nproc)
+
+
 def relabel(w: Workload, app_id: int, file_id: int, start_time: float = 0.0) -> Workload:
     """Retag a workload for use inside a mixed load."""
 

@@ -1,1 +1,2 @@
-"""Trace sharding for the fleet (see :mod:`repro_torch.distributed.sharding`)."""
+"""Trace sharding for the fleet (:mod:`.sharding`) and the fault-tolerance
+state machines the service drives (:mod:`.fault_tolerance`)."""

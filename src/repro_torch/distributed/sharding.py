@@ -1,9 +1,10 @@
 """Trace sharding: request -> I/O node assignment for the fleet.
 
 Each policy is a pure function of the trace's columns, so the shards
-partition the trace exactly.  The port's copy of the reference's trace
-policies; the tensor-mesh half of the reference module belongs to the
-model stack and is not ported yet.
+partition the trace exactly; :func:`reshard_to_survivors` re-policies a
+dead node's requests over the survivors.  The port's copy of the
+reference's trace policies; the tensor-mesh half of the reference module
+belongs to the model stack and is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,4 +79,34 @@ def assign_nodes(policy: str, offsets, file_ids, app_ids,
             f"policy {policy!r} returned {out.shape[0]} assignments for "
             f"{np.asarray(offsets).shape[0]} requests"
         )
+    return out
+
+
+def reshard_to_survivors(policy: str, offsets, file_ids, app_ids,
+                         assignment, survivors) -> np.ndarray:
+    """Reassign requests stranded on dead nodes onto the survivors.
+
+    Requests whose ``assignment`` already names a survivor stay put; every
+    other request is re-policied over the survivor set (the policy runs
+    with ``num_nodes = len(survivors)`` and its output indexes the sorted
+    survivor list).  Pure and deterministic.
+    """
+
+    assignment = np.asarray(assignment, dtype=np.int64)
+    surv = np.asarray(sorted(set(int(s) for s in survivors)), dtype=np.int64)
+    if surv.size == 0:
+        raise ValueError("no surviving nodes to reshard onto")
+    out = assignment.copy()
+    dead_mask = ~np.isin(assignment, surv)
+    if not dead_mask.any():
+        return out
+    idx = np.nonzero(dead_mask)[0]
+    sub = assign_nodes(
+        policy,
+        np.asarray(offsets)[idx],
+        np.asarray(file_ids)[idx],
+        np.asarray(app_ids)[idx],
+        int(surv.size),
+    )
+    out[idx] = surv[sub]
     return out

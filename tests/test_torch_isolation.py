@@ -1,7 +1,7 @@
 """The port stands alone: no module of it imports JAX or the reference
-package, it runs (fleet sweep and serving) with both blocked, and its entry
-points refuse to fall back to the CPU quietly when no CUDA card is
-present."""
+package, it runs (fleet sweep, the online service, the checkpoint store and
+serving) with both blocked, and its entry points refuse to fall back to the
+CPU quietly when no CUDA card is present."""
 
 import ast
 import dataclasses
@@ -22,6 +22,7 @@ from repro_torch.core import engine_device as ed
 from repro_torch.launch.serve import serve
 from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax
+from repro_torch.service import BurstBufferService, run_service_schemes
 from repro_torch.testing.traces import golden_trace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -47,9 +48,13 @@ def test_no_jax_or_reference_import(path):
 def test_scan_covers_the_host_engine_modules():
     names = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
     for mod in ("avl", "extent_index", "log_store", "pipeline", "redirector", "ftl",
-                "simulator", "fleet", "device_model"):
+                "simulator", "fleet", "device_model", "burst_buffer"):
         assert f"core/{mod}.py" in names
-    assert "testing/golden.py" in names
+    for mod in ("__init__", "arrivals", "injector", "loop", "metrics"):
+        assert f"service/{mod}.py" in names
+    assert {"checkpoint/__init__.py", "checkpoint/tiered_store.py",
+            "distributed/fault_tolerance.py", "testing/golden.py",
+            "testing/service.py"} <= names
 
 
 _BLOCKED_RUN = r'''
@@ -71,6 +76,19 @@ one = run_schemes(batch, engine="per-request", device="cpu")
 assert all(fr.total_bytes == batch.total_bytes for fr in (*ftl.values(), *host.values()))
 assert all(r.total_bytes == batch.total_bytes for r in one.values())
 import repro_torch.testing.golden
+import repro_torch.distributed.fault_tolerance
+from repro_torch.service import BurstBufferService, poisson_arrivals, scripted
+svc = BurstBufferService(num_nodes=4, ssd_capacity=16 << 20, epoch_seconds=0.5,
+                         heartbeat_timeout=2.0, injector=scripted((1.0, "crash", 1)),
+                         device="cpu").run(poisson_arrivals(batch, rate_rps=500.0, seed=1))
+assert svc.metrics.conservation_violations() == [] and svc.metrics.faults
+import tempfile
+import numpy as np
+from repro_torch.checkpoint import TieredCheckpointStore
+with tempfile.TemporaryDirectory() as root:
+    store = TieredCheckpointStore(root)
+    store.save(1, {"w": np.arange(1000, dtype=np.float32)})
+    assert (store.load(1)["w"] == np.arange(1000, dtype=np.float32)).all()
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import serve
 for arch in ("qwen3-1.7b", "falcon-mamba-7b"):
@@ -125,6 +143,16 @@ def test_other_entry_points_need_cuda_by_default(no_cuda):
     assert run_schemes(batch, device="cpu")["ssdup+"].total_bytes == batch.total_bytes
     assert FleetSimulator(device="cpu").run(batch).total_bytes == batch.total_bytes
     assert run_fleet_schemes(batch, device="cpu")["orangefs"].total_bytes == batch.total_bytes
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BurstBufferService()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BurstBufferService(score_backend="numpy")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_service_schemes(batch)
+    assert BurstBufferService(device="cpu").run(batch).metrics.completed_bytes == \
+        batch.total_bytes
+    assert run_service_schemes(batch, device="cpu")["ssdup"].fleet.total_bytes == \
+        batch.total_bytes
 
 
 def test_model_entry_points_need_cuda_by_default(no_cuda):

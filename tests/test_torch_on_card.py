@@ -28,6 +28,8 @@ from repro_torch.kernels.stream_rf import kernel as rf_kernel
 from repro_torch.kernels.stream_rf import ops as rf_ops
 from repro_torch.kernels.stream_rf import ref as rf_ref
 from repro_torch.launch.serve import serve
+from repro_torch.service import BurstBufferService, FaultInjector, poisson_arrivals, scripted
+from repro_torch.testing.service import ReshardCountingService, same_service_result
 from repro_torch.testing import stream_rows
 from repro_torch.testing.golden import fleet_result_to_dict
 from repro_torch.testing.traces import golden_trace, sweep_trace
@@ -316,3 +318,35 @@ def test_ftl_sweep_card_equals_cpu(card, workload):
                     assert g[k] == pytest.approx(v, rel=1e-9, abs=0), (scheme, k)
                 else:
                     assert g[k] == v, (scheme, k)
+
+
+SERVICE_FAULTS = {
+    "healthy": None,
+    "crash": lambda: FaultInjector.crash_at(2.5, 2),
+    "every-kind": lambda: scripted((1.0, "crash", 5), (2.0, "slow", 2, 3.0),
+                                   (2.0, "ssd_degrade", 6, 0.5), (1.5, "stall", 1, 1.0, 6.0)),
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(SERVICE_FAULTS))
+def test_service_on_card_equals_numpy_scoring(card, scenario):
+    """BurstBufferService on the card: its windows scored by the stream
+    kernel in one launch a run plus one a resharding failover, and the
+    result equal, field for field, to the same run scored by the NumPy
+    oracle."""
+
+    batch = poisson_arrivals(golden_trace("mixed-burst"), rate_rps=100.0, seed=7)  # ~10 s
+    make = SERVICE_FAULTS[scenario]
+    kw = dict(num_nodes=8, policy="range-offset", ssd_capacity=16 << 20, epoch_seconds=0.5,
+              heartbeat_timeout=2.0)
+    if scenario == "every-kind":
+        kw.update(ssd="ftl", admission_occupancy=0.9)
+    svc = ReshardCountingService(injector=make and make(), device=card, **kw)
+    rf_ops.reset_launches()
+    got = svc.run(batch)
+    assert rf_ops.launches["stream_stats"] == 1 + svc.reshards
+    assert (svc.reshards > 0) == (scenario != "healthy")
+    want = BurstBufferService(injector=make and make(), score_backend="numpy", device=card,
+                              **kw).run(batch)
+    assert same_service_result(got, want)
+    assert got.metrics.conservation_violations() == []

@@ -1,6 +1,7 @@
 """The port's workload generators reproduce the reference's traces to the
-byte: the golden fixtures' stored fingerprints, and the generators'
-columns for a spread of patterns."""
+byte: the golden fixtures' stored fingerprints, the generators' columns for
+a spread of patterns, and the checkpoint waves; ``reshard_to_survivors``
+gives the reference's assignment over every policy and dead set."""
 
 import json
 
@@ -55,3 +56,60 @@ def test_generators_equal_reference(case):
 def test_unknown_pattern_raises():
     with pytest.raises(ValueError):
         port_w.ior("diagonal", 4)
+
+
+WAVES = {
+    "default-knobs": dict(nproc=4, waves=2, bytes_per_wave=4 * 1024 * 1024),
+    "rotating": dict(nproc=8, waves=5, bytes_per_wave=8 * 1024 * 1024, rotate_files=3,
+                     file_id=10, app_id=2, compute_seconds=2.5, seed=7),
+    "one-wave": dict(nproc=16, waves=1, bytes_per_wave=16 * 1024 * 1024,
+                     request_size=64 * 1024, seed=1),
+}
+
+
+def _items(w):
+    return [(type(r).__name__, getattr(r, "seconds", None)) if not hasattr(r, "offset")
+            else (r.offset, r.size, r.file_id, r.app_id, r.time) for r in w.trace]
+
+
+@pytest.mark.parametrize("case", sorted(WAVES))
+def test_checkpoint_wave_equals_reference(case):
+    a, b = port_w.checkpoint_wave(**WAVES[case]), ref_w.checkpoint_wave(**WAVES[case])
+    assert (a.name, a.total_bytes, a.nproc) == (b.name, b.total_bytes, b.nproc)
+    assert _items(a) == _items(b)
+
+
+@pytest.mark.parametrize("bad", [dict(waves=0), dict(rotate_files=0)])
+def test_checkpoint_wave_rejects_what_the_reference_rejects(bad):
+    for mod in (port_w, ref_w):
+        with pytest.raises(ValueError):
+            mod.checkpoint_wave(4, **bad)
+
+
+@pytest.mark.parametrize("policy", ["round-robin-app", "hash-file", "range-offset"])
+@pytest.mark.parametrize("dead", [(), (3,), (0, 5), (1, 2, 4, 6, 7)])
+def test_reshard_to_survivors_equals_reference(policy, dead):
+    from repro.distributed import sharding as ref_s
+    from repro_torch.distributed import sharding as port_s
+
+    rng = np.random.default_rng(len(dead) * 7 + len(policy))
+    n, nodes = 500, 8
+    offs = rng.integers(0, 1 << 36, n).astype(np.int64)
+    fids = rng.integers(0, 12, n).astype(np.int64)
+    aids = rng.integers(0, 5, n).astype(np.int64)
+    assign = port_s.assign_nodes(policy, offs, fids, aids, nodes)
+    survivors = [s for s in range(nodes) if s not in dead][::-1]  # any order
+    got = port_s.reshard_to_survivors(policy, offs, fids, aids, assign, survivors)
+    want = ref_s.reshard_to_survivors(policy, offs, fids, aids, assign, survivors)
+    assert np.array_equal(got, want) and got.dtype == want.dtype
+    assert not np.isin(got, dead).any()
+    assert np.array_equal(got[~np.isin(assign, dead)], assign[~np.isin(assign, dead)])
+    assert np.array_equal(port_s.reshard_to_survivors(policy, offs, fids, aids, got,
+                                                      survivors), got)  # idempotent
+
+
+def test_reshard_to_no_survivors_raises():
+    from repro_torch.distributed.sharding import reshard_to_survivors
+
+    with pytest.raises(ValueError):
+        reshard_to_survivors("hash-file", [0], [0], [0], [0], [])

@@ -78,7 +78,23 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 7. f32     — decode against forward and the ``"torch"`` prefill against
    the kernel prefill, at full width and depth in f32; and card against CPU: each model at full width, depth 2, one 256-token
    prompt, f32 with TF32 off, the same weights on both;
-8. model-kernel timings — ``flash_attention`` and ``ssm_scan`` at the
+8. train   — ``make_train_step`` on the torch paths (the kernels have no
+   backward pass) in bf16 with ``remat="block"``, batch 4 x 2048 from
+   ``ShardedLoader(seed=0)``, AdamW at lr 3e-4: qwen3-1.7b at its published
+   config for 6 steps, falcon-mamba-7b at full width and depth 8 for 3
+   steps, each with ``save_async`` mid-run and ``save_blocking`` at the
+   end through ``Checkpointer`` -> ``TieredCheckpointStore``.  Gates:
+   finite loss and grad_norm every step; the restored parameters bit-equal
+   to the live ones; each manifest in the reference's layout; the async
+   checkpoint equal to the parameters at its step; the restored
+   parameters' kernel prefill (the serve shape) bit-equal to the live
+   ones', with one kernel launch a layer a prefill, and within the serve
+   tolerance of the torch prefill.  Then qwen3-1.7b at depth 2 in f32,
+   3 steps of batch 1 x 256 on the card and on the CPU
+   (``TRAIN_F32_TOL``), and the training CLI: the tiny preset for 40
+   steps with a checkpoint every 20, then resumed to 60 (exit 0, the
+   resume line, the loss falling);
+9. model-kernel timings — ``flash_attention`` and ``ssm_scan`` at the
    shapes the serve path gives them, beside their bounds, plain versions
    and (attention) ``scaled_dot_product_attention``; attention in bf16
    (tensor cores) and, as ``f32_ms``, in f32 (CUDA cores).
@@ -90,13 +106,16 @@ line, and as its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -128,6 +147,11 @@ from repro_torch.service import poisson_arrivals, scripted  # noqa: E402
 from repro_torch.testing.service import ReshardCountingService, same_service_result  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.checkpoint import Checkpointer, TieredCheckpointStore  # noqa: E402
+from repro_torch.data import DataConfig, ShardedLoader  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.models.convert import params_from_jax, tree_from_params  # noqa: E402
+from repro_torch.optim import AdamWConfig, init_state, linear_warmup_cosine  # noqa: E402
 from repro_torch.testing import golden  # noqa: E402
 from repro_torch.testing.stream_rows import KINDS, stream_rows  # noqa: E402
 from repro_torch.testing.traces import golden_trace, sweep_trace, trace_fingerprint  # noqa: E402
@@ -391,6 +415,20 @@ def phase_any_width(dev: torch.device) -> float:
     return float(worst)
 
 
+def device_ops(prof) -> list:
+    """[name, device ms, calls] of each op with device time in a profile,
+    the most device time first."""
+
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            rows.append([e.key[:80], t / 1e3, e.count])
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def device_time(fn, iters: int = 1) -> tuple[float, float, int]:
     """Profile ``iters`` calls of ``fn``: ``(wall s, device busy s, device
     ops)``, the device numbers summed over the profiler's trace."""
@@ -402,15 +440,8 @@ def device_time(fn, iters: int = 1) -> tuple[float, float, int]:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    us, count = 0.0, 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0:
-            us += t
-            count += e.count
-    return wall, us / 1e6, count
+    rows = device_ops(prof)
+    return wall, sum(r[1] for r in rows) / 1e3, sum(r[2] for r in rows)
 
 
 def profiled(fn, iters: int = 50) -> tuple[float, int]:
@@ -1459,14 +1490,7 @@ def top_device_ops(fn, k: int = 8) -> list:
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0:
-            rows.append([e.key[:80], t / 1e3, e.count])
-    return sorted(rows, key=lambda r: -r[1])[:k]
+    return device_ops(prof)[:k]
 
 
 def phase_f32_paths(dev: torch.device, arch: str) -> dict:
@@ -1636,6 +1660,296 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
 
 
 
+# the training slice: (arch, layers kept (None: all), steps, save_async after
+# this step); batch 4 x 2048 from ShardedLoader(seed=0), AdamW at lr 3e-4
+# with linear_warmup_cosine(steps // 3, steps)
+TRAIN_RUNS = (("qwen3-1.7b", None, 6, 3), ("falcon-mamba-7b", 8, 3, 2))
+TRAIN_PROFILED_STEP = 1  # after the first step's warm-up, before any save
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2048, 3e-4
+# card against CPU: 3 steps at lr 3e-4.  The first step's loss and
+# grad_norm differ only by summation order (rtol 1e-5).  Adam divides each
+# gradient by its own magnitude, so an element whose gradient is at the two
+# devices' rounding level can move by up to 2 lr a step either way: all
+# elements are held to that, all but 1e-4 of them to atol 1e-5 / rtol
+# 1e-4, and the later steps' loss and grad_norm, computed on those
+# parameters, to rtol 1e-3.
+TRAIN_F32_TOL = {"atol": 1e-5, "rtol": 1e-4, "outlier_share": 1e-4,
+                 "first_step_rtol": 1e-5, "later_steps_rtol": 1e-3}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _leaves(tree: dict, prefix: str = "") -> list:
+    """(path, leaf) of a nested dict."""
+
+    out = []
+    for k, v in tree.items():
+        out += _leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+    return out
+
+
+def _same_params(label: str, want, got) -> None:
+    for (name, a), b in zip(want.named_parameters(), got.parameters()):
+        if a.dtype != b.dtype or not torch.equal(_bits(a.detach()), _bits(b.detach())):
+            fail(f"{label}: {name} differs")
+
+
+def _reference_layout(cfg) -> dict:
+    """Manifest path -> (shape, dtype) of the reference's tree of ``cfg``."""
+
+    specs = get_model(cfg, "meta").param_specs()
+    dtype = {"A_log": "float32"}
+    out = {f"params/{k}": v for k, v in specs.items() if k != "layers"}
+    out.update({f"params/layers/{k}": v for k, v in specs["layers"].items()})
+    return {path: (tuple(shape), dtype.get(path.rsplit("/", 1)[-1], cfg.dtype))
+            for path, shape in out.items()}
+
+
+def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: int) -> dict:
+    """``make_train_step`` at full width (depth cut to ``layers``), bf16,
+    ``remat="block"``, torch impls: ``steps`` steps, ``save_async`` after
+    step ``async_after`` and ``save_blocking`` at the end through
+    ``Checkpointer`` -> ``TieredCheckpointStore``; then the restored
+    parameters are held bit-equal to the live ones, the manifest to the
+    reference's layout, the async checkpoint to a device copy taken at its
+    step, and the restored parameters' kernel prefill to the live ones' bit
+    for bit and to the torch prefill within the serve tolerance."""
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch")
+    if cfg.remat != "block" or cfg.dtype != "bfloat16":
+        fail(f"{arch}: the training slice runs bf16 with remat='block'")
+    name = "flash_attention" if cfg.family == "dense" else "ssm_scan"
+    model = get_model(cfg, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()
+    ssm_ops.reset_launches()
+    params = model.init_params(SERVE_SEED)
+    n_params = sum(p.numel() for p in params.parameters())
+    save_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    opt_state = init_state(dict(params.named_parameters()))
+    step_fn = make_train_step(model, AdamWConfig(
+        lr=TRAIN_LR, schedule=linear_warmup_cosine(steps // 3, steps)))
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0), host_id=0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"[train] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{n_params / 1e9:.3f} B parameters in bf16 ({save_bytes / 1e9:.2f} GB a save); "
+            f"{free / 1e9:.1f} GB free under {root}")
+        if free < 3 * save_bytes:
+            fail(f"{arch}: {free / 1e9:.1f} GB free, a save needs {save_bytes / 1e9:.2f} GB")
+        ck = Checkpointer(TieredCheckpointStore(root))
+        records, snapshot_s, at_async = [], {}, None
+        for step in range(steps):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in loader.get(step).items()}
+            torch.cuda.synchronize()
+            in_flight = ck.saves_started > ck.saves_completed
+            prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                    if step == TRAIN_PROFILED_STEP else contextlib.nullcontext())
+            with prof:
+                t0 = time.perf_counter()
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                loss, gnorm, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            if step == TRAIN_PROFILED_STEP:
+                ops = device_ops(prof)
+                profile = {"step": step, "wall_ms": ms,
+                           "busy_ms": sum(r[1] for r in ops), "device_ops": sum(r[2] for r in ops),
+                           "top_device_ops": ops[:10]}
+            records.append({"step": step, "ms": ms, "loss": loss, "grad_norm": gnorm, "lr": lr,
+                            "save_in_flight": in_flight})
+            log(f"[train] {arch}: step {step} loss {loss:.4f} grad_norm {gnorm:.4f} "
+                f"lr {lr:.3g} {ms:.1f} ms{' (a save in flight)' if in_flight else ''}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                fail(f"{arch}: non-finite loss or grad_norm at step {step}")
+            if step + 1 == async_after:
+                t0 = time.perf_counter()
+                tree = tree_from_params(params)
+                at_async = {k: (v.clone() if k != "layers" else dict(v)) for k, v in tree.items()}
+                ck.save_async(step + 1, {"params": tree})
+                del tree
+                snapshot_s["async"] = time.perf_counter() - t0
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        ck.save_blocking(steps, {"params": tree_from_params(params)})
+        snapshot_s["blocking_total"] = time.perf_counter() - t0
+        ck.close()
+        del opt_state
+        torch.cuda.empty_cache()
+
+        store = TieredCheckpointStore(root)
+        bb, layout = {}, _reference_layout(cfg)
+        for s in (async_after, steps):
+            with open(store.manifest_path(s)) as f:
+                man = json.load(f)
+            bb[s] = man["bb_stats"]
+            got = {leaf["path"]: (tuple(leaf["shape"]), leaf["dtype"]) for leaf in man["leaves"]}
+            if got != layout:
+                fail(f"{arch}: manifest of step {s} is not the reference layout")
+        t0 = time.perf_counter()
+        step_back, tree = Checkpointer(store).restore_latest(
+            like={"params": tree_from_params(params)})
+        restored = params_from_jax(cfg, tree["params"], device=dev)
+        restore_s = time.perf_counter() - t0
+        if step_back != steps:
+            fail(f"{arch}: restored step {step_back}, expected {steps}")
+        _same_params(f"{arch} restored vs live", params, restored)
+        early = store.load(async_after)["params"]
+        for k, want in _leaves(at_async):
+            got = dict(_leaves(early))[k]
+            got = got if isinstance(got, torch.Tensor) else torch.from_numpy(np.array(got))
+            if not torch.equal(_bits(got.to(dev)), _bits(want)):
+                fail(f"{arch}: the async checkpoint of step {async_after} differs from "
+                     f"the parameters at that step ({k})")
+        del tree, at_async, early
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the restored checkpoint served: kernel prefill of the restored and the
+    # live parameters bit-equal, the torch prefill within the serve tolerance
+    kernel_model = get_model(dataclasses.replace(cfg, attention_impl="kernel",
+                                                 ssm_impl="kernel"), dev)
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                            device=dev)
+    with torch.inference_mode():
+        live, _ = kernel_model.prefill(params, {"tokens": prompts})
+        back, _ = kernel_model.prefill(restored, {"tokens": prompts})
+        plain, _ = model.prefill(restored, {"tokens": prompts})
+    launches = {"flash_attention": fa_ops.launches["flash_attention"],
+                "ssm_scan": ssm_ops.launches["ssm_scan"]}
+    if launches[name] != 2 * cfg.n_layers:
+        fail(f"{arch}: {name} launched {launches[name]} times serving the restored "
+             f"checkpoint, expected {2 * cfg.n_layers} (two kernel prefills)")
+    if not torch.equal(live, back):
+        fail(f"{arch}: the restored parameters' kernel prefill differs from the live ones'")
+    serve_err = _held(f"{arch} restored: torch vs kernel prefill", plain[:, -1], back[:, -1],
+                      BF16_TOL, BF16_TOL)
+    # steady: past the first step, no save in flight, and not under the
+    # profiler where another step is
+    steady = [r["ms"] for r in records[1:] if not r["save_in_flight"]]
+    if len(steady) > 1:
+        steady = [r["ms"] for r in records[1:]
+                  if not r["save_in_flight"] and r["step"] != TRAIN_PROFILED_STEP]
+    during = [r["ms"] for r in records if r["save_in_flight"]]
+    out = {
+        "model": arch, "layers": cfg.n_layers, "parameters": n_params, "steps": steps,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "records": records,
+        "first_step_ms": records[0]["ms"],
+        "step_ms": sum(steady) / len(steady) if steady else None,
+        "step_ms_save_in_flight": sum(during) / len(during) if during else None,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (sum(steady) / len(steady) / 1e3)
+        if steady else None,
+        "peak_gib": peak_train, "save_bytes": save_bytes,
+        "save_seconds": ck.save_seconds, "snapshot_seconds": snapshot_s,
+        "restore_seconds": restore_s, "bb_stats": bb, "launches": launches,
+        "profiled_step": profile,
+        "restored_torch_vs_kernel_max_abs_err": serve_err,
+    }
+    log(f"[train] {json.dumps(out)}")
+    del params, restored, model, kernel_model, live, back, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_card_vs_cpu(dev: torch.device) -> dict:
+    """qwen3-1.7b at full width, depth 2, f32 (TF32 off), batch 1 x 256:
+    three train steps on the card and on the CPU from the same weights."""
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32",
+                              attention_impl="torch", ssm_impl="torch")
+    steps, opt = 3, AdamWConfig(lr=TRAIN_LR, schedule=linear_warmup_cosine(1, 3))
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                      global_batch=1, seed=0), host_id=0)
+    cpu_params = get_model(cfg, "cpu").init_params(SERVE_SEED)
+    runs = {}
+    for where in ("cpu", dev):
+        t0 = time.perf_counter()
+        params = copy.deepcopy(cpu_params).to(where)
+        state = init_state(dict(params.named_parameters()))
+        step_fn = make_train_step(get_model(cfg, where), opt)
+        metrics = []
+        for step in range(steps):
+            batch = {k: torch.from_numpy(v).to(where) for k, v in loader.get(step).items()}
+            params, state, m = step_fn(params, state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[str(where)] = (params, metrics, time.perf_counter() - t0)
+        del state
+    (p_cpu, m_cpu, t_cpu), (p_card, m_card, t_card) = runs["cpu"], runs[str(dev)]
+    metric_err = [max(abs(a - b) / abs(a) for a, b in zip(ra, rb))
+                  for ra, rb in zip(m_cpu, m_card)]
+    for step, err in enumerate(metric_err):
+        tol = TRAIN_F32_TOL["first_step_rtol" if step == 0 else "later_steps_rtol"]
+        if err > tol:
+            fail(f"train card vs cpu: loss/grad_norm of step {step} differ by {err:.3g} "
+                 f"relative (rtol {tol})")
+    worst, outliers, total = 0.0, 0, 0
+    bound = 2 * TRAIN_LR * steps
+    for (name, a), b in zip(p_cpu.named_parameters(), p_card.parameters()):
+        a, b = a.detach(), b.detach().cpu()
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        outliers += int((diff > TRAIN_F32_TOL["atol"] + TRAIN_F32_TOL["rtol"] * a.abs()).sum())
+        total += a.numel()
+        if float(diff.max()) > bound:
+            fail(f"train card vs cpu: {name} moved {float(diff.max()):.3g} apart "
+                 f"(more than 2 lr a step)")
+    if outliers > TRAIN_F32_TOL["outlier_share"] * total:
+        fail(f"train card vs cpu: {outliers} of {total} parameters outside atol "
+             f"{TRAIN_F32_TOL['atol']} / rtol {TRAIN_F32_TOL['rtol']}")
+    out = {"loss_grad_norm_rel_err_by_step": metric_err, "param_max_abs_err": worst,
+           "params_outside_tol": outliers, "params": total, "cpu_s": t_cpu, "card_s": t_card,
+           "loss": [m[0] for m in m_card]}
+    log(f"[train-card-vs-cpu] qwen3-1.7b full width, 2 layers, f32, 1 x 256, 3 steps: "
+        f"{json.dumps(out)}")
+    del p_cpu, p_card, cpu_params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cli() -> dict:
+    """``python -m repro_torch.launch.train --preset tiny`` for 40 steps with
+    a checkpoint every 20, then resumed to 60: exit 0, the resume line, the
+    loss falling."""
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    out = {}
+    try:
+        losses = []
+        for steps, extra in ((40, []), (60, ["--resume"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--preset", "tiny",
+                 "--steps", str(steps), "--ckpt-dir", root, "--ckpt-every", "20", *extra],
+                env=env, capture_output=True, text=True, timeout=300)
+            out[f"steps_{steps}_s"] = time.perf_counter() - t0
+            for line in proc.stdout.splitlines():
+                log(f"[train-cli] {line}")
+            if proc.returncode != 0:
+                fail(f"train CLI (--steps {steps}) exited {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+            losses += [float(line.split()[4]) for line in proc.stdout.splitlines()
+                       if line.startswith("[train] step")]
+        if "[train] resumed from step 40" not in proc.stdout:
+            fail("train CLI: no 'resumed from step 40' line")
+        if not losses[-1] < losses[0]:
+            fail(f"train CLI: loss {losses[0]} -> {losses[-1]} did not fall")
+        out["losses"] = losses
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[train-cli] {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1684,6 +1998,14 @@ def main() -> int:
     for arch in SERVE_ARCHS:
         phase_f32_paths(dev, arch)
         phase_card_vs_cpu(dev, arch)
+    t_train = time.perf_counter()
+    for run in TRAIN_RUNS:
+        res = phase_train(dev, *run)
+        for name, count in res["launches"].items():
+            model_launches[name] = model_launches.get(name, 0) + count
+    phase_train_card_vs_cpu(dev)
+    phase_train_cli()
+    log(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s")
     kernels += model_kernel_timings(dev, model_worst, model_launches, clock_mhz * 1e6)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,8 +1,7 @@
-"""Checkpoint storage through the burst buffer (:mod:`.tiered_store`).
+"""Checkpoint substrate: the tiered store through the burst buffer
+(:mod:`.tiered_store`) and asynchronous saves (:mod:`.checkpointer`)."""
 
-The asynchronous ``Checkpointer`` of the reference serialises model trees
-of the training stack and is not ported yet."""
-
+from .checkpointer import Checkpointer
 from .tiered_store import TieredCheckpointStore
 
-__all__ = ["TieredCheckpointStore"]
+__all__ = ["Checkpointer", "TieredCheckpointStore"]

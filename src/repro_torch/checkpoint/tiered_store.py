@@ -9,7 +9,12 @@ sequentially in AVL order.
 Format: one ``<step>/file_<id>.bin`` data file per host per checkpoint step
 and a JSON manifest with per-leaf (path, offset, size, dtype, shape)
 records.  Leaves are written at deterministic offsets so a restore can read
-any subset.  Leaves are NumPy arrays (or anything ``np.asarray`` takes).
+any subset.  Leaves are NumPy arrays (or anything ``np.asarray`` takes) or
+torch tensors.  A bfloat16 leaf (a torch tensor, or an ``ml_dtypes`` array
+from the reference) is written as its bits, the manifest's ``dtype``
+``"bfloat16"`` as the reference writes it, and loaded as a
+``torch.bfloat16`` tensor: neither direction needs ``ml_dtypes``, which
+ships with JAX.  Other leaves load as NumPy arrays.
 """
 
 from __future__ import annotations
@@ -20,19 +25,33 @@ import os
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..core.burst_buffer import BurstBufferWriter
 
 Tree = Any
+BF16 = "bfloat16"
 
 
-def _flatten(tree: Tree, prefix: str = "") -> list[tuple[str, np.ndarray]]:
+def _host_array(leaf) -> tuple[np.ndarray, str]:
+    """The array whose bytes are written, and the manifest's dtype name."""
+
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), BF16
+        leaf = t.numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _flatten(tree: Tree, prefix: str = "") -> list[tuple[str, np.ndarray, str]]:
     out = []
     if isinstance(tree, dict):
         for k in sorted(tree):
             out.extend(_flatten(tree[k], f"{prefix}/{k}" if prefix else k))
     else:
-        out.append((prefix, np.asarray(tree)))
+        out.append((prefix, *_host_array(tree)))
     return out
 
 
@@ -103,14 +122,14 @@ class TieredCheckpointStore:
         manifest: list[dict] = []
         off = 0
         queues: list[list[tuple[int, bytes]]] = [[] for _ in range(max(writers, 1))]
-        for i, (path, arr) in enumerate(leaves):
+        for i, (path, arr, dtype) in enumerate(leaves):
             data = np.ascontiguousarray(arr).tobytes()
             for lo in range(0, len(data), chunk):
                 queues[i % max(writers, 1)].append(
                     (off + lo, data[lo: lo + chunk]))
             manifest.append(dataclasses.asdict(LeafRecord(
                 path=path, offset=off, nbytes=len(data),
-                dtype=str(arr.dtype), shape=tuple(arr.shape))))
+                dtype=dtype, shape=tuple(arr.shape))))
             off += len(data)
         try:
             if writers == -1:
@@ -154,14 +173,18 @@ class TieredCheckpointStore:
         with open(self.manifest_path(step)) as f:
             man = json.load(f)
         data_path = os.path.join(self.root, f"step_{step:08d}", man["data_file"])
-        records: dict[str, np.ndarray] = {}
+        records: dict[str, np.ndarray | torch.Tensor] = {}
         with open(data_path, "rb") as f:
             for leaf in man["leaves"]:
                 if only_paths is not None and leaf["path"] not in only_paths:
                     continue
                 f.seek(leaf["offset"])
                 buf = f.read(leaf["nbytes"])
-                arr = np.frombuffer(buf, dtype=leaf["dtype"]).reshape(leaf["shape"])
+                if leaf["dtype"] == BF16:
+                    bits = np.frombuffer(buf, dtype=np.int16).reshape(leaf["shape"])
+                    arr = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+                else:
+                    arr = np.frombuffer(buf, dtype=leaf["dtype"]).reshape(leaf["shape"])
                 records[leaf["path"]] = arr
         return _unflatten(records)
 

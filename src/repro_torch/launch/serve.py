@@ -23,22 +23,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import get_model
 from .steps import make_prefill_step, make_serve_step
-
-# the reference trainer's presets (dense, f32)
-PRESETS: dict[str, ModelConfig] = {
-    "tiny": ModelConfig(
-        name="tiny", family="dense", n_layers=4, d_model=256, n_heads=4,
-        n_kv_heads=2, d_ff=1024, vocab_size=8192, head_dim=64,
-        dtype="float32", remat="none"),
-    "20m": ModelConfig(
-        name="20m", family="dense", n_layers=6, d_model=384, n_heads=6,
-        n_kv_heads=2, d_ff=1536, vocab_size=16384, head_dim=64,
-        dtype="float32", remat="none"),
-    "100m": ModelConfig(
-        name="100m", family="dense", n_layers=12, d_model=512, n_heads=8,
-        n_kv_heads=8, d_ff=2048, vocab_size=49152, head_dim=64,
-        dtype="float32", remat="none"),
-}
+from .train import PRESETS
 
 
 def pad_cache(cache: dict, extra: int) -> dict:

@@ -1,8 +1,10 @@
-"""Carry configs and weights from the reference package to the port.
+"""Carry configs and weights between the reference package and the port.
 
-Both take the reference's objects by duck type (a dataclass config, a
+They take the reference's objects by duck type (a dataclass config, a
 nested dict of arrays), so the port imports nothing of it.  With these the
-two packages compute the same thing on the same weights.
+two packages compute the same thing on the same weights, and a checkpoint
+written by either (``tree_from_params`` gives the reference's layout)
+loads in the other.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ def config_from_jax(cfg) -> ModelConfig:
 
 
 def _tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.detach()
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":  # ml_dtypes: carry the bits
         return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(
@@ -40,9 +44,9 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> ModelParams:
-    """The reference's parameter tree (arrays, per-layer leaves stacked on
-    L) as the port's parameters, bit for bit, in the tree's dtypes, on
-    ``device`` (``None``: the CUDA card; raises without one)."""
+    """The reference's parameter tree (arrays or tensors, per-layer leaves
+    stacked on L) as the port's parameters, bit for bit, in the tree's
+    dtypes, on ``device`` (``None``: the CUDA card; raises without one)."""
 
     device = resolve_device(device)
     tensors = {k: _tensor(v) for k, v in tree.items() if k != "layers"}
@@ -58,3 +62,16 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> ModelParams:
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(t.shape)}")
             t.copy_(src)
     return params
+
+
+def tree_from_params(params: ModelParams) -> dict:
+    """The inverse of :func:`params_from_jax`: the port's parameters as the
+    reference's tree, ``{"tok_emb": ..., "layers": {"wq": (L, ...)}}``, of
+    detached tensors on the parameters' device (the per-layer leaves
+    stacked on L, so a copy; the top-level leaves share storage)."""
+
+    tree: dict = {name: t.detach() for name, t in params.named_parameters(recurse=False)}
+    names = [name for name, _ in params.layers[0].named_parameters()]
+    tree["layers"] = {name: torch.stack([getattr(w, name).detach() for w in params.layers])
+                      for name in names}
+    return tree

@@ -1,5 +1,5 @@
-"""Model building blocks of the port's serve path: the dense (GQA
-attention + SwiGLU) and Mamba-1 families.
+"""Model building blocks of the port: the dense (GQA attention + SwiGLU)
+and Mamba-1 families, for serving and training.
 
 Every block is ``f(cfg, w, x, ...)`` over a module ``w`` whose parameters
 carry the reference's leaf names (``w.wq``, ``w.in_proj``, ...).  The casts
@@ -11,6 +11,11 @@ Mamba-1 prefill scan to the ``ssm_scan`` kernel under ``"kernel"``; under
 ``"torch"`` they run the layer's own direct/query-chunked attention and
 chunked scan.  On one card there is nothing to shard, so the reference's
 sharding annotations have no counterpart here.
+
+Where the reference wraps a body in ``jax.checkpoint`` (a block, a query
+chunk of long attention, a chunk of the scan), the port calls it through
+:func:`checkpointed`, which recomputes it in the backward pass when
+autograd records and calls it plainly otherwise (serving).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention_bshd
@@ -53,6 +59,16 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def checkpointed(fn, *args, **kw):
+    """``fn(*args, **kw)``, its activations recomputed in the backward pass
+    instead of kept, when autograd records (the reference's
+    ``jax.checkpoint``); a plain call under ``no_grad``/inference mode."""
+
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, axes: int = 1) -> torch.Tensor:
@@ -157,8 +173,8 @@ def _attend_chunked(q, k, v, n_rep, scale, causal, smax=torch.float32):
     qc = min(ATTN_Q_CHUNK, sq)
     if sq % qc != 0:
         raise ValueError(f"seq {sq} not divisible by query chunk {qc}")
-    outs = [_attend_direct(q[:, off: off + qc], k, v, n_rep, scale, causal,
-                           q_offset=off, smax=smax) for off in range(0, sq, qc)]
+    outs = [checkpointed(_attend_direct, q[:, off: off + qc], k, v, n_rep, scale, causal,
+                         q_offset=off, smax=smax) for off in range(0, sq, qc)]
     return torch.cat(outs, dim=1)
 
 
@@ -292,16 +308,21 @@ def _ssm_scan(delta, B_ssm, C_ssm, xi, h0, chunk, *, A_full):
         delta, B_ssm, C_ssm, xi = (F.pad(t, (0, 0, 0, pad)) for t in (delta, B_ssm, C_ssm, xi))
     h, ys = h0, []
     for off in range(0, s + pad, chunk):
-        d = delta[:, off: off + chunk]
-        bm, cm = B_ssm[:, off: off + chunk], C_ssm[:, off: off + chunk]
-        xc = xi[:, off: off + chunk]
-        a = torch.exp(d[..., None] * A_full[None, None])  # (B,chunk,DI,N)
-        bx = d[..., None] * bm[:, :, None, :] * xc.float()[..., None]
-        a_acc, bx_acc = _assoc_scan(a, bx)
-        hs = a_acc * h[:, None] + bx_acc
-        ys.append(torch.einsum("bldn,bln->bld", hs, cm).to(xi.dtype))
-        h = hs[:, -1]
+        y, h = checkpointed(_scan_chunk, h, *(t[:, off: off + chunk]
+                                              for t in (delta, B_ssm, C_ssm, xi)),
+                            A_full=A_full)
+        ys.append(y)
     return torch.cat(ys, dim=1)[:, :s], h
+
+
+def _scan_chunk(h, d, bm, cm, xc, *, A_full):
+    """One chunk of :func:`_ssm_scan`: returns (y, h at its last step)."""
+
+    a = torch.exp(d[..., None] * A_full[None, None])  # (B,chunk,DI,N)
+    bx = d[..., None] * bm[:, :, None, :] * xc.float()[..., None]
+    a_acc, bx_acc = _assoc_scan(a, bx)
+    hs = a_acc * h[:, None] + bx_acc
+    return torch.einsum("bldn,bln->bld", hs, cm).to(xc.dtype), hs[:, -1]
 
 
 def _ssm_step(delta, B_ssm, C_ssm, xi, h0, *, A_full):
@@ -357,3 +378,14 @@ def embed_tokens(cfg: ModelConfig, emb: torch.Tensor, tokens: torch.Tensor) -> t
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     head = params.tok_emb.T if cfg.tie_embeddings else params.lm_head
     return x @ head
+
+
+def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean NLL in f32 over all positions of the padded vocabulary; labels
+    < 0 are masked (padding)."""
+
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    nll = -torch.gather(lp, -1, safe[..., None])[..., 0]
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)

@@ -1,5 +1,6 @@
-"""Attention-free SSM LM (falcon-mamba-7b family, Mamba-1 blocks), served on
-one card.
+"""Attention-free SSM LM (falcon-mamba-7b family, Mamba-1 blocks), trained
+and served on one card.  With ``cfg.remat == "block"`` each block is
+recomputed in the backward pass.
 
 Decode state is O(1) in context length: the conv window (K-1 inputs) and
 the SSM hidden state (d_inner x state) per layer, kept in the reference's
@@ -7,6 +8,8 @@ stacked layout ``{"conv": (L,B,K-1,DI), "h": (L,B,DI,N) f32}``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -70,23 +73,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
     return params
 
 
+def _layer(cfg: ModelConfig, w, x: torch.Tensor, st: SSMState | None):
+    y, new = L.mamba1_block(cfg, w, L.rms_norm(x, w.norm, cfg.norm_eps), st)
+    return x + y, new
+
+
 def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             states: dict | None = None, collect_state: bool = False):
     """states: stacked decode state {"conv": (L,B,K-1,DI), "h": (L,B,DI,N)}.
     Returns (hidden, new stacked state or None)."""
 
     x = L.embed_tokens(cfg, params.tok_emb, tokens)
+    layer = functools.partial(L.checkpointed, _layer) if cfg.remat == "block" else _layer
     convs, hs = [], []
     for i, w in enumerate(params.layers):
         st = None if states is None else SSMState(conv=states["conv"][i], h=states["h"][i])
-        y, new = L.mamba1_block(cfg, w, L.rms_norm(x, w.norm, cfg.norm_eps), st)
-        x = x + y
+        x, new = layer(cfg, w, x, st)
         convs.append(new.conv)
         hs.append(new.h)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     if collect_state or states is not None:
         return x, {"conv": torch.stack(convs), "h": torch.stack(hs)}
     return x, None
+
+
+def loss_fn(cfg: ModelConfig, params: ModelParams, batch: dict) -> torch.Tensor:
+    hidden, _ = forward(cfg, params, batch["tokens"])
+    logits = L.lm_logits(cfg, params, hidden)
+    return L.cross_entropy(cfg, logits, batch["labels"])
 
 
 def prefill(cfg: ModelConfig, params: ModelParams, batch: dict):

@@ -5,6 +5,10 @@ stacked on a leading L axis.  Here the top-level leaves (``tok_emb``,
 ``final_norm``, ...) are parameters of :class:`ModelParams` and each layer
 is a :class:`Leaves` module in ``ModelParams.layers``, with the same leaf
 names (``layers[i].wq`` is the reference's ``params["layers"]["wq"][i]``).
+
+Parameters are made with ``requires_grad=False``, so serving records no
+graph; training turns them on with ``params.requires_grad_()``
+(``make_train_step`` does).
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ class ModelApi:
     param_specs: Callable  # () -> leaf shapes
     init_params: Callable  # (seed or torch.Generator) -> ModelParams on device
     forward: Callable  # (params, tokens) -> (hidden, None)
+    loss_fn: Callable  # (params, batch) -> scalar
     prefill: Callable  # (params, batch) -> (logits, cache)
     decode_step: Callable  # (params, cache, tokens, pos) -> (logits, cache)
     abstract_cache: Callable  # (batch, seq) -> cache of meta tensors
@@ -48,6 +49,7 @@ def get_model(cfg: ModelConfig, device: "torch.device | str | None" = None) -> M
         param_specs=lambda: mod.param_specs(cfg),
         init_params=init_params,
         forward=lambda params, tokens: mod.forward(cfg, params, tokens),
+        loss_fn=lambda params, batch: mod.loss_fn(cfg, params, batch),
         prefill=lambda params, batch: mod.prefill(cfg, params, batch),
         decode_step=lambda params, cache, tokens, pos: mod.decode_step(
             cfg, params, cache, tokens, pos),

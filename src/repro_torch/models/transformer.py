@@ -1,10 +1,12 @@
 """Decoder-only LM trunk of the dense family (GQA, optional qk-norm, RoPE,
-SwiGLU), served on one card.
+SwiGLU), trained and served on one card.
 
-The layer loop is a Python loop over ``params.layers``.  Caches keep the
-reference's stacked layout at the public functions: ``{"k": (L,B,S,KV,hd),
-"v": ...}``.
+The layer loop is a Python loop over ``params.layers``; with
+``cfg.remat == "block"`` each block is recomputed in the backward pass.
+Caches keep the reference's stacked layout at the public functions:
+``{"k": (L,B,S,KV,hd), "v": ...}``.
 
+* ``loss_fn(cfg, params, batch)``                  — mean next-token NLL
 * ``prefill(cfg, params, batch)``                  — last logits + KV cache
 * ``decode_step(cfg, params, cache, tokens, pos)`` — one serve step; writes
   the new k/v into ``cache`` in place
@@ -12,6 +14,7 @@ reference's stacked layout at the public functions: ``{"k": (L,B,S,KV,hd),
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -92,13 +95,20 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
     x = L.embed_tokens(cfg, params.tok_emb, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     ks, vs = [], []
+    block = functools.partial(L.checkpointed, _block) if cfg.remat == "block" else _block
     for w in params.layers:
-        x, (k, v) = _block(cfg, w, x, positions)
+        x, (k, v) = block(cfg, w, x, positions)
         if collect_cache:
             ks.append(k)
             vs.append(v)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, ((torch.stack(ks), torch.stack(vs)) if collect_cache else None)
+
+
+def loss_fn(cfg: ModelConfig, params: ModelParams, batch: dict) -> torch.Tensor:
+    hidden, _ = forward(cfg, params, batch["tokens"])
+    logits = L.lm_logits(cfg, params, hidden)
+    return L.cross_entropy(cfg, logits, batch["labels"])
 
 
 def prefill(cfg: ModelConfig, params: ModelParams, batch: dict):

@@ -191,6 +191,53 @@ def test_params_from_jax_needs_cuda_by_default(no_cuda, arch):
         assert b.device.type == "cpu" and torch.equal(a, b), name
 
 
+def test_scan_covers_the_training_modules():
+    names = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
+    assert {"optim/__init__.py", "optim/adamw.py", "optim/schedules.py",
+            "optim/compression.py", "data/__init__.py", "data/pipeline.py",
+            "checkpoint/checkpointer.py", "launch/steps.py", "launch/train.py"} <= names
+
+
+_BLOCKED_TRAIN = r'''
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
+import tempfile
+from repro_torch.launch import train
+with tempfile.TemporaryDirectory() as root:
+    args = ["--device", "cpu", "--arch", "qwen3-1.7b", "--steps", "3", "--batch", "2",
+            "--seq", "16", "--ckpt-dir", root, "--ckpt-every", "2"]
+    train.main(args)
+    train.main(args[:5] + ["4"] + args[6:] + ["--resume"])
+assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
+               if sys.modules[m] is not None)
+print("ok")
+'''
+
+
+def test_training_runs_with_jax_and_reference_blocked():
+    """The smoke config trains in bf16, checkpoints and resumes with JAX,
+    the reference and ``ml_dtypes`` all blocked."""
+
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_TRAIN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "resumed from step 3" in proc.stdout and proc.stdout.rstrip().endswith("ok")
+
+
+def test_training_entry_points_need_cuda_by_default(no_cuda, tmp_path):
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "falcon-mamba-7b", "--steps", "1"])
+    train.main(["--device", "cpu", "--steps", "1", "--batch", "1", "--seq", "8"])
+
+
 def test_chip_smoke_refuses_without_cuda():
     """Without a card the smoke run exits nonzero and prints no result."""
 

@@ -19,8 +19,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    per-row true lengths, and check that widths above the limit are
    refused; hold ``flash_attention`` and ``ssm_scan`` against their plain
    versions in f32 and bf16 over the reference tests' shapes, GQA/MQA,
-   causal or not, Sq != Sk, ragged lengths and the serve slice's own
-   shapes, at the reference tests' tolerances;
+   causal or not, Sq != Sk, ragged lengths, every head dim of the
+   attention kernel (hd 80 among them) and each served arch's prefill
+   shape, at the reference tests' tolerances;
 3. golden  — rebuild both golden traces (fingerprints must match), run
    ``FleetProgram`` on the card under both fixture policies within each
    fixture's ``device_tolerance`` (routing fields exact), and replay the
@@ -66,18 +67,22 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    one-launch shape at ``stream_len=96``, beside their byte bound, their plain versions and
    ``torch.sort``; and the long-row kernel at the whole trace at
    ``stream_len=2048``, a row of its own;
-6. serve   — the model main path: ``serve`` of qwen3-1.7b and of
-   falcon-mamba-7b at full width and depth in bf16, batch 4, prompt 2048,
-   32 greedy tokens, with launch counts reset just before and read just
-   after; then prefill/decode times from a second call, a profile of one
+6. serve   — the model main path: ``serve`` of qwen3-1.7b, stablelm-3b,
+   starcoder2-3b, phi4-mini-3.8b (dense), zamba2-2.7b (hybrid: Mamba-2
+   and a shared attention block) and falcon-mamba-7b (Mamba-1) at full
+   width and depth in bf16, batch 4, prompt 2048, 32 greedy tokens, with
+   launch counts reset just before and read just after each (attention
+   once a layer, zamba2's once a group of six layers; the scan once a
+   layer); then prefill/decode times from a second call, a profile of one
    prefill and one decode step, ``ssm_scan`` held against its plain
    version on the delta and A falcon-mamba-7b's first and last layers give
    it (x, B and C rescaled to unit RMS; x in bf16 and in f32), decode
-   against forward, and the ``"torch"``
-   prefill against the kernel prefill;
+   against forward, and the ``"torch"`` prefill against the kernel
+   prefill;
 7. f32     — decode against forward and the ``"torch"`` prefill against
-   the kernel prefill, at full width and depth in f32; and card against CPU: each model at full width, depth 2, one 256-token
-   prompt, f32 with TF32 off, the same weights on both;
+   the kernel prefill, at full width and depth in f32; and card against
+   CPU: each model at full width, depth 2 (zamba2: one group of six),
+   one 256-token prompt, f32 with TF32 off, the same weights on both;
 8. train   — ``make_train_step`` on the torch paths (the kernels have no
    backward pass) in bf16 with ``remat="block"``, batch 4 x 2048 from
    ``ShardedLoader(seed=0)``, AdamW at lr 3e-4: qwen3-1.7b at its published
@@ -97,7 +102,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 9. model-kernel timings — ``flash_attention`` and ``ssm_scan`` at the
    shapes the serve path gives them, beside their bounds, plain versions
    and (attention) ``scaled_dot_product_attention``; attention in bf16
-   (tensor cores) and, as ``f32_ms``, in f32 (CUDA cores).
+   (tensor cores) and, as ``f32_ms``, in f32 (CUDA cores), at qwen3's
+   hd 128 and, as the row ``flash_attention_hd80``, at stablelm-3b's
+   hd 80 (the shape of zamba2-2.7b's shared block).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.
@@ -179,17 +186,24 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 SFU_PER_CLOCK_PER_SM = 16
 # the serve slice: batch 4, 2048-token prompts, 32 greedy tokens
-SERVE_ARCHS = ("qwen3-1.7b", "falcon-mamba-7b")
+SERVE_ARCHS = ("qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b", "zamba2-2.7b",
+               "falcon-mamba-7b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 SERVE_SEED = 0
 BF16_TOL = 0.08  # tests/test_models_smoke.py (2 layers)
 # Decode against forward, and the "torch" prefill against the kernel one,
-# are gated in bf16 at BF16_TOL where that holds.  After falcon-mamba-7b's
-# 64 bf16 layers the gaps are rounding (0.172 and 0.217 at logits up to
-# 5.75, while decode against forward in f32 at full depth agrees to 4e-5),
-# so there the bf16 values are recorded, argmax agreement is gated, and
-# phase_f32_paths holds both comparisons in f32 at full width and depth.
-BF16_GATED = ("qwen3-1.7b",)
+# are gated in bf16 at BF16_TOL where that holds: the dense archs.  After
+# falcon-mamba-7b's 64 bf16 layers the gaps are rounding (0.172 and 0.217 at
+# logits up to 5.75, while decode against forward in f32 at full depth
+# agrees to 4e-5), and after zamba2-2.7b's 54 (0.127 and 0.148; 1.9e-5 and
+# 1.3e-5 in f32), so there the bf16 values are recorded, argmax agreement
+# is gated, and phase_f32_paths holds both comparisons in f32 at full width
+# and depth.
+BF16_GATED = ("qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b")
+# zamba2-2.7b's prefill takes about 14 s at batch 4 (the Mamba-2 torch
+# scan), so its profile (one prefill, its largest ops, one decode step)
+# runs at batch 1; its timed serve and every check run at batch 4.
+PROFILE_BATCH = {"zamba2-2.7b": 1}
 F32_TOL = {"atol": 1e-3, "rtol": 1e-4}  # card vs CPU, f32, other summation orders
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 SSM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # tests/test_kernel_ssm_scan.py
@@ -1191,6 +1205,13 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
 
 # -- model kernels and the serve path ---------------------------------------
 
+# the prefill attention of each served arch: (b, h, kv, s, hd), causal
+FA_SERVE = {
+    "qwen3-1.7b": (SERVE_BATCH, 16, 8, SERVE_PROMPT, 128),
+    "stablelm-3b": (SERVE_BATCH, 32, 32, SERVE_PROMPT, 80),  # zamba2-2.7b's shared block too
+    "phi4-mini-3.8b": (SERVE_BATCH, 24, 8, SERVE_PROMPT, 128),
+    "starcoder2-3b": (SERVE_BATCH, 24, 2, SERVE_PROMPT, 128),
+}
 FA_CASES = [  # (b, h, kv, sq, sk, hd, causal)
     (1, 2, 2, 128, 128, 64, True),   # the grid of tests/test_kernels.py
     (2, 4, 2, 128, 128, 64, True),
@@ -1207,8 +1228,12 @@ FA_CASES = [  # (b, h, kv, sq, sk, hd, causal)
     (1, 4, 2, 300, 200, 64, True),
     (1, 4, 2, 300, 200, 128, True),
     (2, 2, 1, 200, 333, 64, False),
-    (SERVE_BATCH, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True),  # qwen3-1.7b prefill
-]
+    # hd 80 (stablelm-3b, zamba2-2.7b): MHA and GQA, causal and not, ragged
+    (1, 4, 4, 300, 200, 80, True),
+    (1, 4, 4, 256, 256, 80, False),
+    (2, 6, 2, 200, 333, 80, False),
+    (2, 4, 2, 100, 77, 80, True),
+] + [(b, h, kv, s, s, hd, True) for b, h, kv, s, hd in FA_SERVE.values()]  # the prefills
 SSM_CASES = [  # (b, s, di, n, block_d, chunk)
     (1, 32, 16, 4, 16, 16),    # the grid of tests/test_kernel_ssm_scan.py
     (2, 64, 32, 8, 16, 16),
@@ -1254,11 +1279,19 @@ def _held(label: str, got, want, atol: float, rtol: float) -> float:
     return err
 
 
+def fa_instance(hd: int) -> str:
+    """The attention kernel's row in the kernels line: its hd-80 instance
+    (five 32-byte swizzle blocks a row, ``m64n80k16``) apart."""
+
+    return "flash_attention_hd80" if hd == 80 else "flash_attention"
+
+
 def check_model_kernels(dev: torch.device) -> dict[str, float]:
     """``flash_attention`` and ``ssm_scan`` against their plain versions on
-    the card; returns each kernel's largest |error| over the cases."""
+    the card; returns each kernel's (and the hd-80 instance's) largest
+    |error| over the cases."""
 
-    worst = {"flash_attention": 0.0, "ssm_scan": 0.0}
+    worst = {"flash_attention": 0.0, "flash_attention_hd80": 0.0, "ssm_scan": 0.0}
     for i, (b, h, kv, sq, sk, hd, causal) in enumerate(FA_CASES):
         serve_shape = sq == SERVE_PROMPT
         for dtype in (torch.float32, torch.bfloat16):
@@ -1271,9 +1304,10 @@ def check_model_kernels(dev: torch.device) -> dict[str, float]:
             want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
             err = _held(f"flash_attention {(b, h, kv, sq, sk, hd, causal)} {dtype}",
                         got, want, FA_TOL[dtype], FA_TOL[dtype])
-            worst["flash_attention"] = max(worst["flash_attention"], err)
+            worst[fa_instance(hd)] = max(worst[fa_instance(hd)], err)
     log(f"[kernels] flash_attention: {2 * len(FA_CASES)} cases within 2e-5 (f32) / "
-        f"2e-2 (bf16) of the plain version, max |err| {worst['flash_attention']:.3g}")
+        f"2e-2 (bf16) of the plain version, max |err| {worst['flash_attention']:.3g}, "
+        f"at hd 80 {worst['flash_attention_hd80']:.3g}")
 
     for i, (b, s, di, n, bd, ck) in enumerate(SSM_CASES):
         for xdtype in (torch.float32, torch.bfloat16):
@@ -1301,11 +1335,26 @@ def _agreement(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.argmax(-1) == b.argmax(-1)).float().mean())
 
 
+def prefill_launches(cfg) -> tuple[str, int]:
+    """The kernel a prefill of ``cfg`` launches, and how often: attention
+    once a layer (dense) or once a shared-attention application (hybrid:
+    once a group of ``shared_attn_every`` Mamba-2 layers, whose scan has no
+    kernel in either package), the scan once a layer (Mamba-1)."""
+
+    if cfg.family == "ssm":
+        return "ssm_scan", cfg.n_layers
+    if cfg.family == "hybrid":
+        return "flash_attention", cfg.n_layers // cfg.shared_attn_every
+    return "flash_attention", cfg.n_layers
+
+
 def phase_serve(dev: torch.device, arch: str) -> dict:
     """The model main path at full width and depth, then its checks."""
 
     cfg = get_config(arch)
-    name = "flash_attention" if cfg.family == "dense" else "ssm_scan"
+    name, expected = prefill_launches(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the peak below is this arch's own
     model = get_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init_params(SERVE_SEED)
@@ -1324,9 +1373,10 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
     torch.cuda.synchronize()
     launches = {"flash_attention": fa_ops.launches["flash_attention"],
                 "ssm_scan": ssm_ops.launches["ssm_scan"]}
-    if launches[name] < cfg.n_layers:
+    if launches[name] < expected:
         fail(f"{arch}: {name} launched {launches[name]} times on the main path, "
-             f"expected >= {cfg.n_layers} (one per layer of the prefill)")
+             f"expected >= {expected} (one a layer, or a shared-attention group, of the "
+             "prefill)")
     toks = res["tokens"]
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_GEN):
         fail(f"{arch}: generated {tuple(toks.shape)} tokens")
@@ -1351,19 +1401,20 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
         gp = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
         prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gp,
                                 device=dev)
+        profile_prompts = prompts[:PROFILE_BATCH.get(arch, SERVE_BATCH)]
         pre_wall, pre_busy, pre_ops = device_time(
-            lambda: model.prefill(params, {"tokens": prompts}))
-        top = top_device_ops(lambda: model.prefill(params, {"tokens": prompts}))
-        logits, cache = model.prefill(params, {"tokens": prompts})
+            lambda: model.prefill(params, {"tokens": profile_prompts}))
+        top = top_device_ops(lambda: model.prefill(params, {"tokens": profile_prompts}))
+        logits, cache = model.prefill(params, {"tokens": profile_prompts})
         cache = pad_cache(cache, 1)
         tok = logits[:, -1].argmax(-1)[:, None]
         model.decode_step(params, cache, tok, SERVE_PROMPT)
         dec_wall, dec_busy, dec_ops = device_time(
             lambda: model.decode_step(params, cache, tok, SERVE_PROMPT), iters=3)
         del cache, logits
-    log(f"[serve] {arch}: profiled prefill {pre_wall * 1e3:.1f} ms, device busy "
-        f"{pre_busy * 1e3:.1f} ms over {pre_ops} ops; profiled decode "
-        f"step {dec_wall * 1e3 / 3:.1f} ms, device busy {dec_busy * 1e3 / 3:.2f} ms "
+    log(f"[serve] {arch}: profiled at batch {len(profile_prompts)}: prefill "
+        f"{pre_wall * 1e3:.1f} ms, device busy {pre_busy * 1e3:.1f} ms over {pre_ops} ops; "
+        f"decode step {dec_wall * 1e3 / 3:.1f} ms, device busy {dec_busy * 1e3 / 3:.2f} ms "
         f"({dec_busy / dec_wall:.1%}) over {dec_ops // 3} ops a step")
     log(f"[serve] {arch}: prefill's largest device ops (ms, calls): {json.dumps(top)}")
     scan_err = (scan_on_model_inputs(model, params, prompts, cfg.n_layers)
@@ -1419,13 +1470,12 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
         "profiled_prefill_ms": pre_wall * 1e3, "prefill_busy_ms": pre_busy * 1e3,
         "prefill_device_ops": pre_ops, "profiled_decode_step_ms": dec_wall * 1e3 / 3,
         "decode_step_busy_ms": dec_busy * 1e3 / 3, "decode_step_device_ops": dec_ops // 3,
-        "prefill_top_device_ops": top,
+        "prefill_top_device_ops": top, "profiled_batch": len(profile_prompts),
         "scan_on_model_inputs_max_abs_err": scan_err,
     }
     log(f"[serve] {json.dumps(out)}")
     del params, model
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     return out
 
 
@@ -1527,10 +1577,14 @@ def phase_f32_paths(dev: torch.device, arch: str) -> dict:
 
 
 def phase_card_vs_cpu(dev: torch.device, arch: str) -> float:
-    """Full width, depth 2, f32, TF32 off: one 256-token prompt through the
-    same weights on the card (kernels) and on the CPU (plain versions)."""
+    """Full width, depth 2 (the hybrid: one group of ``shared_attn_every``
+    Mamba-2 layers and its shared attention), f32, TF32 off: one 256-token
+    prompt through the same weights on the card (kernels) and on the CPU
+    (plain versions)."""
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = get_config(arch)
+    depth = cfg.shared_attn_every if cfg.family == "hybrid" else 2
+    cfg = dataclasses.replace(cfg, n_layers=depth, dtype="float32")
     model = get_model(cfg, dev)
     params = model.init_params(SERVE_SEED)
     cpu_model = get_model(cfg, "cpu")
@@ -1541,7 +1595,7 @@ def phase_card_vs_cpu(dev: torch.device, arch: str) -> float:
         cpu, _ = cpu_model.prefill(cpu_copy, {"tokens": toks})
     err = _held(f"{arch} card vs cpu (f32, depth 2)", card.cpu(), cpu, F32_TOL["atol"],
                 F32_TOL["rtol"])
-    log(f"[card-vs-cpu] {arch}: full width, 2 layers, 256 tokens, f32: max |logit diff| "
+    log(f"[card-vs-cpu] {arch}: full width, {depth} layers, 256 tokens, f32: max |logit diff| "
         f"{err:.3g} (atol {F32_TOL['atol']}, rtol {F32_TOL['rtol']})")
     del params, cpu_copy, model
     torch.cuda.empty_cache()
@@ -1590,16 +1644,13 @@ def raw_ssm_launch(delta, B, C, x, A):
     return launch
 
 
-def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
-                         sm_clock_hz: float) -> list[dict]:
-    """Both model kernels at the serve slice's shapes, in bf16: ``ms`` from
-    CUDA events over back-to-back raw launches, ``plain_ms`` and
-    ``library_ms`` from CUDA events over calls."""
+def attention_row(dev: torch.device, name: str, arch: str, worst: dict,
+                  launches: dict) -> dict:
+    """The attention kernel (``name``: the row of its instance) at
+    ``arch``'s prefill shape in bf16, beside its bound, its plain version
+    and ``scaled_dot_product_attention``."""
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = []
-
-    b, h, kv, s, _, hd, _ = FA_CASES[-1]
+    b, h, kv, s, hd = FA_SERVE[arch]
     q, k, v = fa_inputs(dev, b, h, kv, s, s, hd, torch.bfloat16, seed=5, bshd=True)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     flops = 4 * b * h * (s * (s + 1) // 2) * hd  # causal: the pairs qpos >= kpos
@@ -1607,10 +1658,10 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     ms = cuda_ms(raw_fa_launch(q, k, v), iters=20, warmup=3)
     f32_ms = cuda_ms(raw_fa_launch(q.float(), k.float(), v.float()), iters=5, warmup=1)
-    out.append({
-        "name": "flash_attention", "route": "cuda", "source": MODEL_SOURCES["flash_attention"],
-        "replaces": REPLACES["flash_attention"], "launches": launches["flash_attention"],
-        "max_abs_err": worst["flash_attention"],
+    return {
+        "name": name, "route": "cuda", "source": MODEL_SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": launches.get(name, 0),
+        "max_abs_err": worst[name],
         "ms": ms,
         "plain_ms": cuda_ms(lambda: fa_ref.flash_attention_ref(qt, kt, vt, causal=True),
                             iters=5, warmup=1),
@@ -1619,7 +1670,7 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=20, warmup=3),
         "call_ms": cuda_ms(lambda: fa_ops.flash_attention_bshd(q, k, v), iters=20, warmup=3),
         "shape": {"q": list(q.shape), "kv": list(k.shape), "dtype": "bfloat16",
-                  "causal": True, "layout": "bshd"},
+                  "causal": True, "layout": "bshd", "prefill_of": arch},
         "flops": flops, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
         # the f32 path (CUDA cores, no TF32) on the same inputs in f32, against
@@ -1628,8 +1679,20 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
         "f32_ops_ms": flops / F32_FLOPS * 1e3,
         "library_call": "F.scaled_dot_product_attention(q, k, v, is_causal=True, "
                         "enable_gqa=True): a yardstick the port never calls",
-    })
-    del q, k, v, qt, kt, vt
+    }
+
+
+def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
+                         sm_clock_hz: float) -> list[dict]:
+    """The model kernels at the serve slice's shapes, in bf16: attention at
+    qwen3-1.7b's prefill (hd 128) and at stablelm-3b's (hd 80, the shape
+    of zamba2-2.7b's shared block too), the scan at falcon-mamba-7b's.
+    ``ms`` from CUDA events over back-to-back raw launches, ``plain_ms``
+    and ``library_ms`` from CUDA events over calls."""
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = [attention_row(dev, "flash_attention", "qwen3-1.7b", worst, launches),
+           attention_row(dev, "flash_attention_hd80", "stablelm-3b", worst, launches)]
 
     b, s, di, n, _, _ = SSM_CASES[-1]
     args = ssm_inputs(dev, b, s, di, n, torch.bfloat16, seed=6)
@@ -1987,11 +2050,13 @@ def main() -> int:
     kernels[0]["launches_host_engines"] = host["launches"]["stream_stats"]
     kernels[0]["launches_service"] = service["launches"]
     kernels[0]["service_scoring"] = service["kernel"]
-    model_launches = {}
+    model_launches = {}  # summed over the serve runs, per kernel instance
     for arch in SERVE_ARCHS:
         res = phase_serve(dev, arch)
         for name, count in res["launches"].items():
-            model_launches[name] = max(model_launches.get(name, 0), count)
+            if name == "flash_attention":
+                name = fa_instance(get_config(arch).head_dim_)
+            model_launches[name] = model_launches.get(name, 0) + count
         if res["scan_on_model_inputs_max_abs_err"]:
             model_worst["ssm_scan"] = max(model_worst["ssm_scan"],
                                           *res["scan_on_model_inputs_max_abs_err"].values())

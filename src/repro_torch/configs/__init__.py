@@ -2,8 +2,9 @@
 (``--arch <id>``), each exporting ``CONFIG`` (the published shape) and
 ``SMOKE`` (a reduced same-family config for CPU tests).
 
-Only the dense and Mamba-1 families serve so far; the reference's other
-architectures wait for their slice of the port (ROADMAP.md, Queue 1).
+The dense, Mamba-1 and hybrid (Mamba-2 + shared attention) families serve
+so far; the reference's MoE, encoder-decoder and VLM architectures wait for
+their slice of the port (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import importlib
 
 from .base import ModelConfig, smoke_variant
 
-ARCHITECTURES = ["qwen3-1.7b", "falcon-mamba-7b"]
+ARCHITECTURES = ["qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b", "zamba2-2.7b",
+                 "falcon-mamba-7b"]
 
 
 def _module(arch: str):

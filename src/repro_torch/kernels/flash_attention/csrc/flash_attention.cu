@@ -11,27 +11,32 @@
 // k/v (4,8,2048,128), causal) the work is 4*B*H*S(S+1)/2*hd = 68.7 GFLOP,
 // 69 us at the bf16 tensor-core peak of 989 TFLOP/s, against 100.7 MB of
 // bytes (30 us at 3.35 TB/s): the kernel is bound by operations, and only
-// the tensor cores reach that rate.
+// the tensor cores reach that rate.  At stablelm-3b's and zamba2-2.7b's shape
+// (q (4,32,2048,80), k/v (4,32,2048,80), causal) it is 85.9 GFLOP, 87 us.
 //
 // bf16: the Hopper FlashAttention-3 shape, written simply.  One block per
 // (b, h, 128-row query tile), the heaviest causal tiles launched first.
 // Warpgroup 0 is the producer: one thread issues a TMA load of the Q tile
-// and keeps a 2-stage ring of 128-key K and V tiles in flight (128-byte
-// swizzle, or the head's row width below 64 columns), completion signalled
-// on mbarriers; its registers go to the consumers by setmaxnreg.  Warpgroups
-// 1 and 2 are consumers of 64 query rows each: S = Q K^T by wgmma
-// (m64n128k16, both operands from shared memory, f32 accumulators), the
-// scale and log2(e) applied to S in f32, exp2, row max and sum over the 4
-// threads that share a row, then O += P V by wgmma with P from registers
-// (rounded to bf16: the one rounding the reference does not make) and V
-// from shared memory read MN-major.  Only the diagonal tile and the ragged
-// last key tile are masked; tiles above the diagonal are never loaded.  The
-// tensor maps are built on the host over each tensor's own strides, so the
-// model's (B,S,H,hd) layout needs no transposes; TMA zero-fills rows past
-// Sq or Sk, the kernel masks keys >= Sk and stores only rows < Sq, so any
-// sequence length works.  The two consumers overlap each other's softmax
-// and products; a consumer does not yet overlap its own softmax with its
-// next product (FA-3's intra-warpgroup pipelining is later work).
+// and keeps a 2-stage ring of 128-key K and V tiles in flight, completion
+// signalled on mbarriers; its registers go to the consumers by setmaxnreg.
+// A tile lies in column blocks of the widest swizzle span (128, 64 or 32
+// bytes) that divides a row: hd 128 is two 128-byte blocks, hd 80 five
+// 32-byte ones.  Warpgroups 1 and 2 are consumers of 64 query rows each:
+// S = Q K^T by wgmma (m64n128k16, both operands from shared memory, one
+// k-step per 16 columns, f32 accumulators), the scale and log2(e) applied
+// to S in f32, exp2, row max and sum over the 4 threads that share a row,
+// then O += P V by wgmma (m64nHDk16) with P from registers (rounded to
+// bf16: the one rounding the reference does not make) and V from shared
+// memory read MN-major, its column blocks one swizzle atom apart each (the
+// descriptor's leading byte offset).  Only the diagonal tile and the
+// ragged last key tile are masked; tiles above the diagonal are never
+// loaded.  The tensor maps are built on the host over each tensor's own
+// strides, so the model's (B,S,H,hd) layout needs no transposes; TMA
+// zero-fills rows past Sq or Sk, the kernel masks keys >= Sk and stores
+// only rows < Sq, so any sequence length works.  The two consumers overlap
+// each other's softmax and products; a consumer does not yet overlap its
+// own softmax with its next product (FA-3's intra-warpgroup pipelining is
+// later work).
 //
 // f32: the CUDA-core version (f32 FMA, no TF32, so it holds the 2e-5
 // tolerance): one block per (b, h, 64-row query tile) looping over 64-key
@@ -74,10 +79,14 @@ constexpr int MIN_SMEM = 116 * 1024;  // > half the SM: one block per SM, so
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory layout of one operand tile (128 rows x HD bf16): HD/CB
-// column blocks of 128 rows x SW bytes, each swizzled as TMA writes it.
+// column blocks of 128 rows x SW bytes, each swizzled as TMA writes it.  The
+// swizzle span is the largest of 128, 64 and 32 bytes that divides a row's
+// HD*2 bytes, so the blocks cover every column: hd 80 (160-byte rows) takes
+// five 32-byte blocks of 16 columns.
 template <int HD>
 struct Tile {
-  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span, bytes
+  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+  static constexpr int SW = (HD * 2) % 128 == 0 ? 128 : (HD * 2) % 64 == 0 ? 64 : 32;
   static constexpr int CB = SW / 2;                        // columns per block
   static constexpr int CBLK = TILE * SW;                   // bytes per block
   static constexpr int BYTES = TILE * HD * 2;
@@ -258,6 +267,25 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// D (64 x 80, f32) += A (64 x 16, bf16 registers) * B (16 x 80, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
   asm volatile(
@@ -286,6 +314,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)
   if constexpr (HD == 16) wgmma_rs_n16(d, a, db, 1);
   if constexpr (HD == 32) wgmma_rs_n32(d, a, db, 1);
   if constexpr (HD == 64) wgmma_rs_n64(d, a, db, 1);
+  if constexpr (HD == 80) wgmma_rs_n80(d, a, db, 1);
   if constexpr (HD == 128) wgmma_rs_n128(d, a, db, 1);
 }
 
@@ -808,6 +837,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, in
     case 16: return FA_LAUNCH(16);
     case 32: return FA_LAUNCH(32);
     case 64: return FA_LAUNCH(64);
+    case 80: return FA_LAUNCH(80);
     case 128: return FA_LAUNCH(128);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -30,7 +30,7 @@ import torch
 
 from . import ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = {"flash_attention": 0}
 

@@ -7,8 +7,10 @@ the CUDA card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --device cpu --batch 4 --prompt-len 32 --gen 32
 
-``--arch`` alone serves the arch's reduced smoke config; ``--full`` serves
-its published config.
+``--arch`` takes every arch of ``repro_torch.configs.ARCHITECTURES`` (the
+dense qwen3-1.7b, stablelm-3b, starcoder2-3b and phi4-mini-3.8b, the hybrid
+zamba2-2.7b, the Mamba-1 falcon-mamba-7b); alone it serves the arch's
+reduced smoke config, and ``--full`` serves its published config.
 """
 
 from __future__ import annotations

@@ -20,11 +20,15 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig | None = None,
     holds ``loss``, ``grad_norm`` and ``lr``.
 
     Raises ``ValueError`` for ``attention_impl`` or ``ssm_impl`` ``"kernel"``:
-    the kernels have no backward pass (nor have the reference's)."""
+    the kernels have no backward pass (nor have the reference's).  Raises
+    ``NotImplementedError`` for compression of the hybrid family, whose
+    reference rows are groups of layers (not ported)."""
 
     opt_cfg = opt_cfg or AdamWConfig()
     comp_cfg = comp_cfg or CompressionConfig()
     cfg = model.cfg
+    if comp_cfg.enabled and cfg.family == "hybrid":
+        raise NotImplementedError("gradient compression of the hybrid family is not ported")
     for field in ("attention_impl", "ssm_impl"):
         if getattr(cfg, field) == "kernel":
             raise ValueError(f"{field}='kernel' has no backward pass; train with "

@@ -1,5 +1,5 @@
-"""The port's model stack: the dense and Mamba-1 families, served on one
-card (prefill + greedy decode)."""
+"""The port's model stack: the dense, Mamba-1 and hybrid (Mamba-2 + shared
+attention) families, served on one card (prefill + greedy decode)."""
 
 from .registry import ModelApi, get_model
 

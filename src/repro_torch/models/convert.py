@@ -16,11 +16,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import mamba, transformer
-from .params import ModelParams, leaf_name
+from . import hybrid, mamba, transformer
+from .params import HybridParams, ModelParams
 
 _IMPLS = {"pallas": "kernel", "xla": "torch"}
-_FAMILY_MODULES = {"dense": transformer, "ssm": mamba}
+_FAMILY_MODULES = {"dense": transformer, "ssm": mamba, "hybrid": hybrid}
 
 
 def config_from_jax(cfg) -> ModelConfig:
@@ -43,35 +43,51 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> ModelParams:
-    """The reference's parameter tree (arrays or tensors, per-layer leaves
-    stacked on L) as the port's parameters, bit for bit, in the tree's
-    dtypes, on ``device`` (``None``: the CUDA card; raises without one)."""
+def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> ModelParams | HybridParams:
+    """The reference's parameter tree (arrays or tensors; per-layer leaves
+    stacked on L under ``"layers"``, or for the hybrid on (G, E) under
+    ``"mamba"`` beside the ``"shared"`` block) as the port's parameters,
+    bit for bit, in the tree's dtypes, on ``device`` (``None``: the CUDA
+    card; raises without one)."""
 
     device = resolve_device(device)
-    tensors = {k: _tensor(v) for k, v in tree.items() if k != "layers"}
-    tensors.update({k: _tensor(v) for k, v in tree["layers"].items()})
-    mod = _FAMILY_MODULES[cfg.family]
-    params = mod.empty_params(cfg, device, lambda name: tensors[name].dtype)
+    tensors = {k: ({kk: _tensor(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                   else _tensor(v)) for k, v in tree.items()}
+    stacked = tensors.get("layers", tensors.get("mamba", {}))
+    dtypes = {leaf: t.dtype for group in (tensors, stacked, tensors.get("shared", {}))
+              for leaf, t in group.items() if isinstance(t, torch.Tensor)}
+    params = _FAMILY_MODULES[cfg.family].empty_params(cfg, device, dtypes.__getitem__)
     with torch.no_grad():
         for name, t in params.named_parameters():
-            src = tensors[leaf_name(name)]
-            if name.startswith("layers."):
-                src = src[int(name.split(".")[1])]
+            parts = name.split(".")
+            if parts[0] == "layers":
+                src = stacked[parts[2]]
+                i = int(parts[1])
+                src = src[divmod(i, src.shape[1])] if "mamba" in tensors else src[i]
+            elif parts[0] == "shared":
+                src = tensors["shared"][parts[1]]
+            else:
+                src = tensors[name]
             if src.shape != t.shape:
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(t.shape)}")
             t.copy_(src)
     return params
 
 
-def tree_from_params(params: ModelParams) -> dict:
+def tree_from_params(params: ModelParams | HybridParams) -> dict:
     """The inverse of :func:`params_from_jax`: the port's parameters as the
-    reference's tree, ``{"tok_emb": ..., "layers": {"wq": (L, ...)}}``, of
+    reference's tree, ``{"tok_emb": ..., "layers": {"wq": (L, ...)}}`` (the
+    hybrid: ``{"mamba": {"in_proj": (G, E, ...)}, "shared": {...}}``), of
     detached tensors on the parameters' device (the per-layer leaves
-    stacked on L, so a copy; the top-level leaves share storage)."""
+    stacked, so a copy; the other leaves share storage)."""
 
     tree: dict = {name: t.detach() for name, t in params.named_parameters(recurse=False)}
     names = [name for name, _ in params.layers[0].named_parameters()]
-    tree["layers"] = {name: torch.stack([getattr(w, name).detach() for w in params.layers])
-                      for name in names}
+    layers = {name: torch.stack([getattr(w, name).detach() for w in params.layers])
+              for name in names}
+    if isinstance(params, HybridParams):
+        tree["mamba"] = {name: t.unflatten(0, params.groups) for name, t in layers.items()}
+        tree["shared"] = {name: t.detach() for name, t in params.shared.named_parameters()}
+    else:
+        tree["layers"] = layers
     return tree

@@ -1,5 +1,6 @@
-"""Model building blocks of the port: the dense (GQA attention + SwiGLU)
-and Mamba-1 families, for serving and training.
+"""Model building blocks of the port: the dense (GQA attention + SwiGLU or
+GELU), Mamba-1 and hybrid (Mamba-2 + shared attention) families, for
+serving and training.
 
 Every block is ``f(cfg, w, x, ...)`` over a module ``w`` whose parameters
 carry the reference's leaf names (``w.wq``, ``w.in_proj``, ...).  The casts
@@ -9,8 +10,9 @@ and scan statistics are f32; ``delta``, ``B`` and ``C`` are f32 before the
 scan.  Prefill attention goes to the ``flash_attention`` kernel and the
 Mamba-1 prefill scan to the ``ssm_scan`` kernel under ``"kernel"``; under
 ``"torch"`` they run the layer's own direct/query-chunked attention and
-chunked scan.  On one card there is nothing to shard, so the reference's
-sharding annotations have no counterpart here.
+chunked scan.  The Mamba-2 scan has no kernel in either package: it runs
+the chunked scan under both.  On one card there is nothing to shard, so
+the reference's sharding annotations have no counterpart here.
 
 Where the reference wraps a body in ``jax.checkpoint`` (a block, a query
 chunk of long attention, a chunk of the scan), the port calls it through
@@ -44,11 +46,13 @@ UNPORTED_LEVERS = ("matmul_weight_dtype", "embed_onehot", "mamba_fused_proj", "p
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for what this slice does not serve, instead of ignoring it."""
 
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
     if cfg.family == "ssm" and cfg.mamba_version != 1:
-        raise NotImplementedError("only Mamba-1 blocks are ported")
+        raise NotImplementedError("the ssm family is ported with Mamba-1 blocks only")
+    if cfg.family == "hybrid" and cfg.mamba_version != 2:
+        raise NotImplementedError("the hybrid family is ported with Mamba-2 blocks only")
     for lever in UNPORTED_LEVERS:
         if getattr(cfg, lever):
             raise NotImplementedError(f"{lever}={getattr(cfg, lever)!r} is not ported yet")
@@ -253,14 +257,14 @@ def mlp(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# selective scan (Mamba-1)
+# selective scan (Mamba-1: A per channel and state; Mamba-2: A per head)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class SSMState:
     """Recurrent state for decode: conv window + SSM hidden state."""
 
-    conv: torch.Tensor  # (B, d_conv-1, d_inner)
+    conv: torch.Tensor  # (B, d_conv-1, conv channels)
     h: torch.Tensor  # (B, d_inner, state) f32
 
 
@@ -291,12 +295,15 @@ def _assoc_scan(a: torch.Tensor, bx: torch.Tensor):
     return a, bx
 
 
-def _ssm_scan(delta, B_ssm, C_ssm, xi, h0, chunk, *, A_full):
+def _ssm_scan(delta, B_ssm, C_ssm, xi, h0, chunk, *, A_full=None, A_head=None,
+              headdim=1):
     """Chunked selective scan; the (B, chunk, DI, N) expansion exists for one
     chunk at a time, never for the whole sequence.
 
-    delta: (B,S,DI) f32; B_ssm/C_ssm: (B,S,N) f32; xi: (B,S,DI);
-    h0: (B,DI,N) f32; A_full: (DI,N) f32.
+    delta: (B,S,DI) f32 (Mamba-1) or (B,S,H) f32 (Mamba-2, per head);
+    B_ssm/C_ssm: (B,S,N) f32; xi: (B,S,DI); h0: (B,DI,N) f32;
+    A_full: (DI,N) f32 (Mamba-1) or A_head: (H,) f32 (Mamba-2, heads of
+    ``headdim`` contiguous channels).
     Returns y: (B,S,DI) (xi dtype), h_last: (B,DI,N) f32.
     """
 
@@ -310,26 +317,47 @@ def _ssm_scan(delta, B_ssm, C_ssm, xi, h0, chunk, *, A_full):
     for off in range(0, s + pad, chunk):
         y, h = checkpointed(_scan_chunk, h, *(t[:, off: off + chunk]
                                               for t in (delta, B_ssm, C_ssm, xi)),
-                            A_full=A_full)
+                            A_full=A_full, A_head=A_head, headdim=headdim)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :s], h
 
 
-def _scan_chunk(h, d, bm, cm, xc, *, A_full):
+def _scan_chunk(h, d, bm, cm, xc, *, A_full=None, A_head=None, headdim=1):
     """One chunk of :func:`_ssm_scan`: returns (y, h at its last step)."""
 
-    a = torch.exp(d[..., None] * A_full[None, None])  # (B,chunk,DI,N)
-    bx = d[..., None] * bm[:, :, None, :] * xc.float()[..., None]
+    if A_full is not None:
+        a = torch.exp(d[..., None] * A_full[None, None])  # (B,chunk,DI,N)
+        bx = d[..., None] * bm[:, :, None, :] * xc.float()[..., None]
+        a_acc, bx_acc = _assoc_scan(a, bx)
+        hs = a_acc * h[:, None] + bx_acc
+        # the last state is cloned: a view would keep the chunk's whole
+        # (B,chunk,DI,N) expansion alive with it
+        return torch.einsum("bldn,bln->bld", hs, cm).to(xc.dtype), hs[:, -1].clone()
+    # Mamba-2: the decay is one scalar a head, carried as (B,chunk,H,1,1) and
+    # broadcast only where it meets bx (B,chunk,H,P,N).  The reference
+    # broadcasts it to (B,chunk,DI,N) first; the products and their order
+    # are the same.
+    b, l, nh = d.shape
+    n = bm.shape[-1]
+    a = torch.exp(d * A_head)[..., None, None]
+    bx = (d[..., None, None] * bm[:, :, None, None, :]
+          * xc.float().reshape(b, l, nh, headdim, 1))
     a_acc, bx_acc = _assoc_scan(a, bx)
-    hs = a_acc * h[:, None] + bx_acc
-    return torch.einsum("bldn,bln->bld", hs, cm).to(xc.dtype), hs[:, -1]
+    hs = a_acc * h.reshape(b, 1, nh, headdim, n) + bx_acc
+    y = torch.einsum("blhpn,bln->blhp", hs, cm).reshape(b, l, nh * headdim)
+    return y.to(xc.dtype), hs[:, -1].reshape(b, nh * headdim, n).clone()
 
 
-def _ssm_step(delta, B_ssm, C_ssm, xi, h0, *, A_full):
+def _ssm_step(delta, B_ssm, C_ssm, xi, h0, *, A_full=None, A_head=None, headdim=1):
     """Single decode step of the scan (S == 1)."""
 
-    a = torch.exp(delta[:, 0, :, None] * A_full[None])  # (B,DI,N)
-    bx = delta[:, 0][..., None] * B_ssm[:, 0, None, :] * xi.float()[:, 0, :, None]
+    if A_full is not None:
+        a = torch.exp(delta[:, 0, :, None] * A_full[None])  # (B,DI,N)
+        d_di = delta[:, 0]
+    else:
+        a = torch.exp(delta[:, 0] * A_head[None, :]).repeat_interleave(headdim, -1)[..., None]
+        d_di = delta[:, 0].repeat_interleave(headdim, -1)
+    bx = d_di[..., None] * B_ssm[:, 0, None, :] * xi.float()[:, 0, :, None]
     h1 = a * h0 + bx
     y = torch.einsum("bdn,bn->bd", h1, C_ssm[:, 0])[:, None].to(xi.dtype)
     return y, h1
@@ -364,6 +392,40 @@ def mamba1_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
         y, h_last = _ssm_scan(delta, B32, C32, xi, h0, min(cfg.scan_chunk, s), A_full=A)
     y = y + xi * w.D[None, None, :].to(x.dtype)
     y = y * F.silu(z)
+    return _matmul(y, w.out_proj), SSMState(conv=conv_tail, h=h_last)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 block (the hybrid family): SSD with a scalar decay per head
+# ---------------------------------------------------------------------------
+
+def mamba2_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = None):
+    """Mamba-2 (SSD) block: heads of ``mamba_headdim`` channels share B and
+    C, and A is a scalar per head; heads are contiguous channel blocks of
+    the (B, S, d_inner) activation.  x: (B,S,D).  With ``state`` and S == 1
+    it runs one decode step, updating the conv window (over x, B and C
+    together) and the hidden state."""
+
+    b, s, _ = x.shape
+    di, n, p = cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim
+
+    z, xBC, delta_in = _matmul(x, w.in_proj).split([di, di + 2 * n, cfg.mamba_heads], dim=-1)
+    prepend = state.conv if state is not None else None
+    xBC, conv_tail = _causal_conv1d(xBC, w.conv_w, w.conv_b, prepend)
+    xi, B_ssm, C_ssm = xBC.split([di, n, n], dim=-1)
+
+    delta = F.softplus(delta_in.float() + w.dt_bias.float())  # (B,S,H)
+    A = -torch.exp(w.A_log.float())  # (H,)
+    h0 = (state.h.float() if state is not None
+          else torch.zeros(b, di, n, dtype=torch.float32, device=x.device))
+    B32, C32 = B_ssm.float().contiguous(), C_ssm.float().contiguous()
+    if s == 1:
+        y, h_last = _ssm_step(delta, B32, C32, xi, h0, A_head=A, headdim=p)
+    else:
+        y, h_last = _ssm_scan(delta, B32, C32, xi, h0, min(cfg.scan_chunk, s), A_head=A,
+                              headdim=p)
+    y = y + xi * w.D.repeat_interleave(p)[None, None, :].to(x.dtype)
+    y = rms_norm(y * F.silu(z), w.out_norm, cfg.norm_eps)
     return _matmul(y, w.out_proj), SSMState(conv=conv_tail, h=h_last)
 
 

@@ -9,9 +9,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import layers, mamba, transformer
+from . import hybrid, layers, mamba, transformer
 
-_FAMILY_MODULES = {"dense": transformer, "ssm": mamba}
+_FAMILY_MODULES = {"dense": transformer, "ssm": mamba, "hybrid": hybrid}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,6 +29,12 @@ CASES = [  # the grid of tests/test_kernels.py
     (1, 2, 2, 256, 256, 128, False),
     (1, 2, 2, 64, 192, 64, False),   # sq != sk (cross-ish)
 ]
+HD80_CASES = [  # the head_dim of stablelm-3b and of zamba2-2.7b's shared block
+    (1, 4, 4, 128, 128, 80, True),   # MHA, as both models
+    (1, 4, 4, 128, 128, 80, False),
+    (2, 4, 2, 128, 128, 80, True),   # GQA n_rep=2
+    (1, 6, 2, 64, 192, 80, False),   # GQA n_rep=3, sq != sk
+]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -53,7 +59,7 @@ def _f32(x):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", CASES)
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", CASES + HD80_CASES)
 def test_vs_pallas_interpret(b, h, kv, sq, sk, hd, causal, dtype):
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(b, h, kv, sq, sk, hd, b * 1000 + sq + hd), dtype)
     want = jax_op(jq, jk, jv, causal=causal, block_q=64, block_k=64, interpret=True)
@@ -64,7 +70,7 @@ def test_vs_pallas_interpret(b, h, kv, sq, sk, hd, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", CASES)
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", CASES + HD80_CASES)
 def test_vs_jnp_oracle(b, h, kv, sq, sk, hd, causal, dtype):
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(b, h, kv, sq, sk, hd, 7 + sq + sk), dtype)
     want = jax_ref(jq, jk, jv, causal=causal)
@@ -123,16 +129,17 @@ def _emulate_bf16_kernel(q, k, v, causal, scale):
     return out.to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("hd", [128, 80])
 @pytest.mark.parametrize("causal", [True, False])
-def test_bf16_kernel_rounding_fits_the_tolerance(causal):
+def test_bf16_kernel_rounding_fits_the_tolerance(causal, hd):
     """The tensor-core kernel's numerics (P in bf16 for P V, the scale after
-    Q K^T) stay within the bf16 tolerance of the Pallas kernel: hd 128,
-    S 256, GQA."""
+    Q K^T) stay within the bf16 tolerance of the Pallas kernel: S 256, GQA,
+    hd 128 and 80."""
 
-    arrays = _inputs(2, 4, 2, 256, 256, 128, 21 + causal)
+    arrays = _inputs(2, 4, 2, 256, 256, hd, 21 + causal)
     (jq, jk, jv), (tq, tk, tv) = _both(arrays, "bfloat16")
     want = jax_op(jq, jk, jv, causal=causal, block_q=128, block_k=128, interpret=True)
-    got = _emulate_bf16_kernel(tq.float(), tk.float(), tv.float(), causal, 1 / math.sqrt(128))
+    got = _emulate_bf16_kernel(tq.float(), tk.float(), tv.float(), causal, 1 / math.sqrt(hd))
     tol = DTYPES["bfloat16"][2]
     np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
     # the emulation is the plain version up to P's rounding
@@ -212,6 +219,21 @@ def test_other_devices_raise():
     q = torch.zeros(1, 2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="no flash_attention kernel"):
         ops.flash_attention_op(q, q, q)
+
+
+def test_every_head_dim_has_a_kernel_instance():
+    """Each head_dim the wrapper admits on the card has a case in the
+    launcher's switch and an m64n<hd>k16 product for O += P V (hd 80 was
+    refused until it had both)."""
+
+    src = kernel.SOURCE.read_text()
+    assert 80 in ops.HEAD_DIMS
+    for hd in ops.HEAD_DIMS:
+        assert f"case {hd}: return FA_LAUNCH({hd});" in src, hd
+        assert f"m64n{hd}k16.f32.bf16.bf16" in src, hd
+        # the swizzle span (32, 64 or 128 bytes) divides the row, so the
+        # column blocks cover every column
+        assert (2 * hd) % 32 == 0
 
 
 def test_kernel_source_names_what_it_replaces():

@@ -91,7 +91,7 @@ with tempfile.TemporaryDirectory() as root:
     assert (store.load(1)["w"] == np.arange(1000, dtype=np.float32)).all()
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import serve
-for arch in ("qwen3-1.7b", "falcon-mamba-7b"):
+for arch in ("qwen3-1.7b", "stablelm-3b", "zamba2-2.7b", "falcon-mamba-7b"):
     out = serve(get_smoke_config(arch), batch=2, prompt_len=8, gen=3, device="cpu")
     assert out["tokens"].shape == (2, 3)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
@@ -189,6 +189,14 @@ def test_params_from_jax_needs_cuda_by_default(no_cuda, arch):
     back = params_from_jax(cfg, tree, device="cpu")
     for (name, a), (_, b) in zip(params.named_parameters(), back.named_parameters()):
         assert b.device.type == "cpu" and torch.equal(a, b), name
+
+
+def test_scan_covers_the_model_modules():
+    names = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
+    assert {"models/hybrid.py", "models/mamba.py", "models/transformer.py",
+            "models/layers.py", "models/params.py", "models/convert.py",
+            "configs/zamba2_2p7b.py", "configs/stablelm_3b.py", "configs/phi4_mini_3p8b.py",
+            "configs/starcoder2_3b.py"} <= names
 
 
 def test_scan_covers_the_training_modules():

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.launch.serve import pad_cache as jax_pad_cache
 from repro.launch.steps import make_serve_step as jax_make_serve_step
@@ -29,21 +30,25 @@ from repro.models import layers as JL
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.serve import pad_cache, serve
 from repro_torch.models import get_model, layers as TL
-from repro_torch.models.convert import config_from_jax, params_from_jax
+from repro_torch.models.convert import config_from_jax, params_from_jax, tree_from_params
 
 pytestmark = pytest.mark.slow  # interpret-mode Pallas runs, as tests/test_models_smoke.py
 
-ARCHS = ["qwen3-1.7b", "falcon-mamba-7b"]
+ARCHS = ["qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b", "zamba2-2.7b",
+         "falcon-mamba-7b"]
 TOL = {"float32": 1e-4, "bfloat16": 0.08}
 B, S = 2, 16
 
 
 @functools.lru_cache(maxsize=None)
-def setup(arch: str, dtype: str, impl: str):
-    """(reference cfg, model, params; port cfg, model, params)."""
+def setup(arch: str, dtype: str, impl: str, head_dim: int | None = None):
+    """(reference cfg, model, params; port cfg, model, params); ``head_dim``
+    replaces the smoke config's."""
 
     jcfg = dataclasses.replace(jax_smoke_config(arch), dtype=dtype, attention_impl=impl,
                                ssm_impl=impl)
+    if head_dim is not None:
+        jcfg = dataclasses.replace(jcfg, head_dim=head_dim)
     jm = jax_get_model(jcfg)
     jparams = jm.init_params(jax.random.PRNGKey(0))
     tcfg = config_from_jax(jcfg)
@@ -65,7 +70,12 @@ def close(got, want, dtype: str) -> None:
     np.testing.assert_allclose(f32(got), f32(want), atol=TOL[dtype], rtol=TOL[dtype])
 
 
-def jax_layer(jparams, i: int = 0) -> dict:
+def jax_layer(jparams, i: int = 0, every: int = 0) -> dict:
+    """Layer ``i``'s leaves; of the hybrid's Mamba layers (stacked on
+    groups x ``every``) when ``every`` is given."""
+
+    if every:
+        return {k: v[i // every, i % every] for k, v in jparams["mamba"].items()}
     return {k: v[i] for k, v in jparams["layers"].items()}
 
 
@@ -79,8 +89,6 @@ def activations(shape, dtype: str, seed: int = 1):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_are_copies(arch):
-    from repro.configs import get_config as jax_config
-
     for jcfg, tcfg in ((jax_config(arch), get_config(arch)),
                        (jax_smoke_config(arch), get_smoke_config(arch))):
         port = dataclasses.asdict(tcfg)
@@ -95,13 +103,14 @@ def test_param_specs_and_conversion_match(arch):
     jspecs = jax.tree.map(lambda a: a.shape, jm.abstract_params(),
                           is_leaf=lambda a: isinstance(a, jax.ShapeDtypeStruct))
     tspecs = tm.param_specs()
-    assert {k: v for k, v in tspecs.items() if k != "layers"} == {
-        k: v for k, v in jspecs.items() if k != "layers"}
-    assert tspecs["layers"] == jspecs["layers"]
-    w = jparams["layers"]
+    assert tspecs == jspecs
+    w = jax_layer(jparams, 1, tcfg.shared_attn_every if tcfg.family == "hybrid" else 0)
     for name, t in tparams.layers[1].named_parameters():
-        assert np.array_equal(f32(t), f32(w[name][1])), name
+        assert np.array_equal(f32(t), f32(w[name])), name
         assert str(t.dtype).split(".")[-1] == str(w[name].dtype)
+    if tcfg.family == "hybrid":
+        for name, t in tparams.shared.named_parameters():
+            assert np.array_equal(f32(t), f32(jparams["shared"][name])), name
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -117,6 +126,13 @@ def test_init_draws_the_reference_scales(arch):
         assert params.layers[0].A_log.dtype == torch.float32
         assert torch.allclose(-torch.exp(params.layers[0].A_log[0]),
                               -torch.arange(1, cfg.ssm_state + 1, dtype=torch.float32))
+    if cfg.family == "hybrid":
+        w = params.layers[-1]
+        assert w.A_log.dtype == w.dt_bias.dtype == torch.float32
+        assert torch.equal(w.A_log, torch.zeros(cfg.mamba_heads))
+        assert torch.equal(w.dt_bias, torch.full((cfg.mamba_heads,), -4.6))
+        assert torch.equal(w.D.float(), torch.ones(cfg.mamba_heads))
+        assert abs(params.shared.wq.float().std().item() - 0.02) < 4e-3
 
 
 def test_unported_config_raises():
@@ -126,7 +142,12 @@ def test_unported_config_raises():
         with pytest.raises(NotImplementedError):
             get_model(dataclasses.replace(cfg, **over), "cpu")
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        get_config("zamba2-2.7b")
+        get_config("whisper-tiny")
+    with pytest.raises(NotImplementedError, match="Mamba-1"):
+        get_model(dataclasses.replace(get_smoke_config("falcon-mamba-7b"), mamba_version=2),
+                  "cpu")
+    with pytest.raises(NotImplementedError, match="Mamba-2"):
+        get_model(dataclasses.replace(get_smoke_config("zamba2-2.7b"), mamba_version=1), "cpu")
     with pytest.raises(ValueError, match="attention_impl"):
         get_model(dataclasses.replace(cfg, attention_impl="pallas"), "cpu")
 
@@ -176,8 +197,13 @@ def test_bf16_softmax_statistics(causal):
 
 
 @pytest.mark.parametrize("dtype", sorted(TOL))
-def test_mlp(dtype):
-    jcfg, _, jparams, tcfg, _, tparams = setup("qwen3-1.7b", dtype, "xla")
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "stablelm-3b"], ids=["swiglu", "gelu"])
+def test_mlp(arch, dtype):
+    """SwiGLU (qwen3) and the tanh-approximate GELU (stablelm), as
+    ``jax.nn.gelu``'s default."""
+
+    jcfg, _, jparams, tcfg, _, tparams = setup(arch, dtype, "xla")
+    assert tcfg.swiglu == (arch == "qwen3-1.7b")
     jx, tx = activations((B, S, jcfg.d_model), dtype)
     close(TL.mlp(tcfg, tparams.layers[1], tx), JL.mlp(jcfg, jax_layer(jparams, 1), jx), dtype)
 
@@ -198,6 +224,48 @@ def test_mamba1_block_prefill_and_step(impl, dtype):
     tout1, tst1 = TL.mamba1_block(tcfg, tparams.layers[0], tx1, tst)
     close(tout1, jout1, dtype)
     np.testing.assert_allclose(f32(tst1.h), f32(jst1.h), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_mamba2_block_prefill_and_step(impl, dtype):
+    """S = 16 over scan chunks of 8 (two chunks), then one decode step."""
+
+    jcfg, _, jparams, tcfg, _, tparams = setup("zamba2-2.7b", dtype, impl)
+    e = tcfg.shared_attn_every
+    jx, tx = activations((B, S, jcfg.d_model), dtype)
+    jout, jst = JL.mamba2_block(jcfg, jax_layer(jparams, 1, e), jx)
+    tout, tst = TL.mamba2_block(tcfg, tparams.layers[1], tx)
+    close(tout, jout, dtype)
+    close(tst.conv, jst.conv, dtype)
+    np.testing.assert_allclose(f32(tst.h), f32(jst.h), atol=1e-3, rtol=1e-3)
+
+    jx1, tx1 = activations((B, 1, jcfg.d_model), dtype, seed=2)
+    jout1, jst1 = JL.mamba2_block(jcfg, jax_layer(jparams, 1, e), jx1, jst)
+    tout1, tst1 = TL.mamba2_block(tcfg, tparams.layers[1], tx1, tst)
+    close(tout1, jout1, dtype)
+    close(tst1.conv, jst1.conv, dtype)
+    np.testing.assert_allclose(f32(tst1.h), f32(jst1.h), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("s", [37, 8])
+def test_mamba2_scan_equals_the_reference_scan(s):
+    """The per-head scan, padded (S 37 over chunks of 16) or one chunk, on
+    random heads of 4 channels: y and the last state in f32."""
+
+    rng = np.random.default_rng(9)
+    b, nh, p, n = 2, 3, 4, 8
+    delta = np.abs(rng.normal(0, 0.5, (b, s, nh))).astype(np.float32)
+    Bm, Cm = (rng.normal(size=(b, s, n)).astype(np.float32) for _ in range(2))
+    x = rng.normal(size=(b, s, nh * p)).astype(np.float32)
+    h0 = rng.normal(size=(b, nh * p, n)).astype(np.float32)
+    A = -np.abs(rng.normal(1, 0.3, nh)).astype(np.float32)
+    args = (delta, Bm, Cm, x, h0)
+    yj, hj = JL._ssm_scan(*map(jnp.asarray, args), 16, A_head=jnp.asarray(A), headdim=p)
+    yt, ht = TL._ssm_scan(*map(torch.from_numpy, args), 16, A_head=torch.from_numpy(A),
+                          headdim=p)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-5, rtol=1e-5)
 
 
 def test_chunked_scan_equals_the_kernels_plain_version():
@@ -296,8 +364,93 @@ def test_serve_cli_presets_and_abstract_cache():
         cfg = get_config(arch)
         cache = get_model(cfg, "cpu").abstract_cache(4, 2048)
         assert all(t.device.type == "meta" for t in cache.values())
+        jcache = jax_get_model(jax_config(arch)).abstract_cache(4, 2048)
+        assert {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                for k, t in cache.items()} == {k: (t.shape, str(t.dtype))
+                                               for k, t in jcache.items()}
     assert tuple(get_model(get_config("qwen3-1.7b"), "cpu").abstract_cache(4, 2048)["k"].shape) \
         == (28, 4, 2048, 8, 128)
+    zamba = get_model(get_config("zamba2-2.7b"), "cpu").abstract_cache(4, 2048)
+    assert tuple(zamba["h"].shape) == (9, 6, 4, 5120, 64)
+    assert tuple(zamba["attn_k"].shape) == (9, 4, 2048, 32, 80)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "zamba2-2.7b"])
+def test_prefill_at_head_dim_80_matches_the_reference(arch, impl, dtype):
+    """The smoke configs with the published head_dim of 80 (the smoke
+    variant's is 16): prefill logits and caches against the reference."""
+
+    jcfg, jm, jparams, tcfg, tm, tparams = setup(arch, dtype, impl, head_dim=80)
+    assert tcfg.head_dim_ == 80
+    toks = tokens(S)
+    jlogits, jcache = jm.prefill(jparams, {"tokens": jnp.asarray(toks)})
+    tlogits, tcache = tm.prefill(tparams, {"tokens": torch.from_numpy(toks).long()})
+    close(tlogits, jlogits, dtype)
+    for key in jcache:
+        close(tcache[key], jcache[key], dtype if key != "h" else "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_hybrid_loss_fn_matches_the_reference(dtype):
+    jcfg, jm, jparams, tcfg, tm, tparams = setup("zamba2-2.7b", dtype, "xla")
+    toks = tokens(S + 1, seed=4)
+    labels = toks[:, 1:].copy()
+    labels[0, :3] = -1  # padding positions
+    want = jm.loss_fn(jparams, {"tokens": jnp.asarray(toks[:, :-1]),
+                                "labels": jnp.asarray(labels)})
+    with torch.no_grad():
+        got = tm.loss_fn(tparams, {"tokens": torch.from_numpy(toks[:, :-1].copy()).long(),
+                                   "labels": torch.from_numpy(labels)})
+    assert got.dtype == torch.float32 and got.dim() == 0
+    close(got, want, dtype)
+
+
+def test_hybrid_gradients_match_the_reference():
+    """f32, ``remat="block"`` (each Mamba-2 layer recomputed): every
+    leaf's gradient at atol/rtol 1e-4, as tests/test_torch_train.py."""
+
+    jcfg, jm, jparams, tcfg, tm, _ = setup("zamba2-2.7b", "float32", "xla")
+    assert tcfg.remat == "block"
+    tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    toks = tokens(S + 1, seed=5)
+    jloss, jgrads = jax.value_and_grad(jm.loss_fn)(
+        jparams, {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])})
+    tparams.requires_grad_()
+    loss = tm.loss_fn(tparams, {"tokens": torch.from_numpy(toks[:, :-1].copy()).long(),
+                                "labels": torch.from_numpy(toks[:, 1:].copy()).long()})
+    grads = torch.autograd.grad(loss, list(tparams.parameters()))
+    close(loss.detach(), jloss, "float32")
+    names = [n for n, _ in tparams.named_parameters()]
+    e = tcfg.shared_attn_every
+    for name, g in zip(names, grads):
+        parts = name.split(".")
+        if parts[0] == "layers":
+            want = jgrads["mamba"][parts[2]][int(parts[1]) // e, int(parts[1]) % e]
+        elif parts[0] == "shared":
+            want = jgrads["shared"][parts[1]]
+        else:
+            want = jgrads[name]
+        np.testing.assert_allclose(f32(g), f32(want), atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_hybrid_checkpoint_round_trip(dtype):
+    """``tree_from_params(params_from_jax(tree))`` is the reference's tree,
+    G x E stacking and the ``shared`` block included, bit for bit."""
+
+    _, _, jparams, tcfg, _, _ = setup("zamba2-2.7b", dtype, "xla")
+    tree = jax.tree.map(np.asarray, jparams)
+    back = tree_from_params(params_from_jax(tcfg, tree, device="cpu"))
+    assert jax.tree.structure(tree) == jax.tree.structure(
+        jax.tree.map(lambda t: 0, back, is_leaf=lambda t: isinstance(t, torch.Tensor)))
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(tree),
+                            jax.tree.leaves(back, is_leaf=lambda t: isinstance(t, torch.Tensor))):
+        assert str(b.dtype).removeprefix("torch.") == str(a.dtype), path
+        bits = b.view(torch.int16) if b.dtype == torch.bfloat16 else b
+        want = a.view(np.int16) if a.dtype.name == "bfloat16" else a
+        assert np.array_equal(bits.numpy(), want), path
 
 
 def test_scan_kernel_refuses_a_state_for_several_tokens():

@@ -64,6 +64,9 @@ def card():
     (1, 2, 2, 64, 192, 64, False),
     (2, 4, 2, 100, 77, 128, True),   # ragged, Sq > Sk
     (1, 4, 4, 33, 33, 16, True),
+    (1, 4, 4, 130, 130, 80, True),   # hd 80, MHA (stablelm-3b, zamba2-2.7b)
+    (2, 6, 2, 100, 77, 80, True),    # hd 80, GQA, ragged
+    (1, 2, 1, 64, 200, 80, False),   # hd 80, Sk not a multiple of 128
 ])
 def test_flash_attention_vs_plain(card, b, h, kv, sq, sk, hd, causal, dtype):
     g = torch.Generator(device=card).manual_seed(sq * 7 + hd)
@@ -82,7 +85,7 @@ def test_flash_attention_vs_plain(card, b, h, kv, sq, sk, hd, causal, dtype):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", [(300, 200), (200, 333)])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 def test_flash_attention_bf16_every_head_dim(card, hd, sq, sk, causal):
     """Each template instance of the tensor-core kernel, on ragged lengths
     (not multiples of its 128-row tiles) with GQA."""
@@ -97,6 +100,18 @@ def test_flash_attention_bf16_every_head_dim(card, hd, sq, sk, causal):
     got_bshd = fa_ops.flash_attention_bshd(q.transpose(1, 2), k.transpose(1, 2),
                                            v.transpose(1, 2), causal=causal)
     assert torch.equal(got_bshd.transpose(1, 2), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_refuses_a_head_dim_without_an_instance(card, dtype):
+    """hd 96 has no kernel instance: the wrapper raises on the card, with
+    no fallback to the plain version."""
+
+    q = torch.zeros(1, 2, 8, 96, dtype=dtype, device=card)
+    fa_ops.reset_launches()
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa_ops.flash_attention_op(q, q, q)
+    assert fa_ops.launches["flash_attention"] == 0
 
 
 def test_flash_attention_bf16_views_tma_cannot_read(card):
@@ -185,14 +200,23 @@ def test_ssm_scan_on_delta_as_the_model_makes_it(card, n, xdtype):
     torch.testing.assert_close(h, hr, atol=1e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b"])
-def test_serve_smoke_config_goes_through_the_kernel(card, arch):
+@pytest.mark.parametrize("arch,head_dim", [
+    ("qwen3-1.7b", None), ("stablelm-3b", None), ("stablelm-3b", 80), ("zamba2-2.7b", None),
+    ("zamba2-2.7b", 80), ("falcon-mamba-7b", None)])
+def test_serve_smoke_config_goes_through_the_kernel(card, arch, head_dim):
+    """One kernel launch a layer of the prefill (a shared-attention
+    application of the hybrid: one a group); ``head_dim`` 80 replaces the
+    smoke config's 16, as the published stablelm-3b and zamba2-2.7b."""
+
     cfg = get_smoke_config(arch)
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     fa_ops.reset_launches()
     ssm_ops.reset_launches()
     res = serve(cfg, batch=2, prompt_len=16, gen=4, seed=0, device=card)
     launched = fa_ops.launches["flash_attention"] + ssm_ops.launches["ssm_scan"]
-    assert launched == cfg.n_layers
+    per_prefill = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else cfg.n_layers
+    assert launched == per_prefill
     plain = serve(dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch"),
                   batch=2, prompt_len=16, gen=4, seed=0, device=card)
     torch.testing.assert_close(res["prefill_logits"], plain["prefill_logits"],

@@ -69,20 +69,29 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``stream_len=2048``, a row of its own;
 6. serve   — the model main path: ``serve`` of qwen3-1.7b, stablelm-3b,
    starcoder2-3b, phi4-mini-3.8b (dense), zamba2-2.7b (hybrid: Mamba-2
-   and a shared attention block) and falcon-mamba-7b (Mamba-1) at full
-   width and depth in bf16, batch 4, prompt 2048, 32 greedy tokens, with
-   launch counts reset just before and read just after each (attention
-   once a layer, zamba2's once a group of six layers; the scan once a
-   layer); then prefill/decode times from a second call, a profile of one
-   prefill and one decode step, ``ssm_scan`` held against its plain
-   version on the delta and A falcon-mamba-7b's first and last layers give
-   it (x, B and C rescaled to unit RMS; x in bf16 and in f32), decode
-   against forward, and the ``"torch"`` prefill against the kernel
-   prefill;
+   and a shared attention block), falcon-mamba-7b (Mamba-1),
+   moonshot-v1-16b-a3b (MoE: top 6 of 64 experts), internvl2-26b (VLM:
+   256 seeded patch embeddings over the first positions) and whisper-tiny
+   (encoder-decoder: 1,500 seeded frames, a 416-token decoder prompt) at
+   full width and depth, and grok-1-314b (MoE: top 2 of 8 experts at d_ff
+   32,768) at full width and depth 4, in bf16, batch 4, prompt 2048 (but
+   whisper's), 32 greedy tokens, with launch counts reset just before and
+   read just after each (attention once a layer, zamba2's once a group of
+   six layers, whisper's once an encoder and once a decoder layer; the
+   scan once a layer); tokens gated below the padded vocabulary, and
+   those in its padding counted; then prefill/decode times from a second
+   call, a profile of one prefill and one decode step, ``ssm_scan`` held
+   against its plain version on the delta and A falcon-mamba-7b's first
+   and last layers give it (x, B and C rescaled to unit RMS; x in bf16 and
+   in f32), decode against forward (MoE at ``moe_group_size=1``), and the
+   ``"torch"`` prefill against the kernel prefill;
 7. f32     — decode against forward and the ``"torch"`` prefill against
-   the kernel prefill, at full width and depth in f32; and card against
-   CPU: each model at full width, depth 2 (zamba2: one group of six),
-   one 256-token prompt, f32 with TF32 off, the same weights on both;
+   the kernel prefill, at full width in f32, at full depth but where it
+   does not fit (moonshot at 12 layers, internvl2 at 24, grok at 1); and
+   card against CPU: each model at full width, depth 2 (zamba2: one group
+   of six; whisper: all 4 + 4), one 256-token prompt (internvl2: 512),
+   f32 with TF32 off, the same weights on both, with the share of MoE
+   routes that differ;
 8. train   — ``make_train_step`` on the torch paths (the kernels have no
    backward pass) in bf16 with ``remat="block"``, batch 4 x 2048 from
    ``ShardedLoader(seed=0)``, AdamW at lr 3e-4: qwen3-1.7b at its published
@@ -103,8 +112,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    shapes the serve path gives them, beside their bounds, plain versions
    and (attention) ``scaled_dot_product_attention``; attention in bf16
    (tensor cores) and, as ``f32_ms``, in f32 (CUDA cores), at qwen3's
-   hd 128 and, as the row ``flash_attention_hd80``, at stablelm-3b's
-   hd 80 (the shape of zamba2-2.7b's shared block).
+   hd 128, as the row ``flash_attention_hd80`` at stablelm-3b's hd 80
+   (the shape of zamba2-2.7b's shared block), and as the row
+   ``flash_attention_hd64`` at whisper-tiny's encoder (4, 1500, 6, 64),
+   non-causal.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.
@@ -187,8 +198,20 @@ F32_FLOPS = 67e12
 SFU_PER_CLOCK_PER_SM = 16
 # the serve slice: batch 4, 2048-token prompts, 32 greedy tokens
 SERVE_ARCHS = ("qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b", "zamba2-2.7b",
-               "falcon-mamba-7b")
+               "falcon-mamba-7b", "moonshot-v1-16b-a3b", "internvl2-26b", "whisper-tiny",
+               "grok-1-314b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# whisper-tiny's decoder prompt: 416 + 32 generated = 448, Whisper's published
+# text context (max_target_positions); its encoder takes 1,500 frames
+PROMPT_OF = {"whisper-tiny": 416}
+# grok-1-314b at full width: its 64 layers are 628 GB in bf16, one layer 4.9 B
+# parameters, so 4 layers (42.5 GB with the embeddings) are served
+SERVE_DEPTH = {"grok-1-314b": 4}
+# phase_f32_paths in f32 at full width: moonshot's 48 layers need 112 GB,
+# internvl2's 48 79.4 GB and grok's 4 85 GB, so their depth is cut; grok's to
+# 1, since at 2 (46 GB of weights) the f32 expert transients of one-token
+# routing groups (about 35 GB at 4 x 2048) do not fit beside them
+F32_DEPTH = {"moonshot-v1-16b-a3b": 12, "internvl2-26b": 24, "grok-1-314b": 1}
 SERVE_SEED = 0
 BF16_TOL = 0.08  # tests/test_models_smoke.py (2 layers)
 # Decode against forward, and the "torch" prefill against the kernel one,
@@ -198,8 +221,12 @@ BF16_TOL = 0.08  # tests/test_models_smoke.py (2 layers)
 # agrees to 4e-5), and after zamba2-2.7b's 54 (0.127 and 0.148; 1.9e-5 and
 # 1.3e-5 in f32), so there the bf16 values are recorded, argmax agreement
 # is gated, and phase_f32_paths holds both comparisons in f32 at full width
-# and depth.
-BF16_GATED = ("qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b")
+# and depth.  moonshot-v1-16b-a3b, internvl2-26b and whisper-tiny stay well
+# inside the tolerance (0.0029-0.0117 on an H100); grok-1-314b's four layers
+# of 8 x 32,768-wide experts reach 0.044 and 0.039, half of it, so grok's
+# are recorded and its argmax agreement gated, as the Mamba archs'.
+BF16_GATED = ("qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b",
+              "moonshot-v1-16b-a3b", "internvl2-26b", "whisper-tiny")
 # zamba2-2.7b's prefill takes about 14 s at batch 4 (the Mamba-2 torch
 # scan), so its profile (one prefill, its largest ops, one decode step)
 # runs at batch 1; its timed serve and every check run at batch 4.
@@ -1211,7 +1238,17 @@ FA_SERVE = {
     "stablelm-3b": (SERVE_BATCH, 32, 32, SERVE_PROMPT, 80),  # zamba2-2.7b's shared block too
     "phi4-mini-3.8b": (SERVE_BATCH, 24, 8, SERVE_PROMPT, 128),
     "starcoder2-3b": (SERVE_BATCH, 24, 2, SERVE_PROMPT, 128),
+    "moonshot-v1-16b-a3b": (SERVE_BATCH, 16, 16, SERVE_PROMPT, 128),
+    "internvl2-26b": (SERVE_BATCH, 48, 8, SERVE_PROMPT, 128),  # grok-1-314b's too
 }
+# whisper-tiny: the encoder's non-causal attention over 1,500 frames and the
+# decoder's causal prefill, hd 64: (b, h, kv, sq, sk, hd, causal)
+WHISPER_ENCODER = (SERVE_BATCH, 6, 6, 1500, 1500, 64, False)
+WHISPER_DECODER = (SERVE_BATCH, 6, 6, PROMPT_OF["whisper-tiny"], PROMPT_OF["whisper-tiny"], 64,
+                   True)
+# the shapes a served prefill gives the kernel, held in the model's layout
+FA_MODEL_SHAPES = [(b, h, kv, s, s, hd, True) for b, h, kv, s, hd in FA_SERVE.values()] + [
+    WHISPER_ENCODER, WHISPER_DECODER]
 FA_CASES = [  # (b, h, kv, sq, sk, hd, causal)
     (1, 2, 2, 128, 128, 64, True),   # the grid of tests/test_kernels.py
     (2, 4, 2, 128, 128, 64, True),
@@ -1233,7 +1270,7 @@ FA_CASES = [  # (b, h, kv, sq, sk, hd, causal)
     (1, 4, 4, 256, 256, 80, False),
     (2, 6, 2, 200, 333, 80, False),
     (2, 4, 2, 100, 77, 80, True),
-] + [(b, h, kv, s, s, hd, True) for b, h, kv, s, hd in FA_SERVE.values()]  # the prefills
+] + FA_MODEL_SHAPES
 SSM_CASES = [  # (b, s, di, n, block_d, chunk)
     (1, 32, 16, 4, 16, 16),    # the grid of tests/test_kernel_ssm_scan.py
     (2, 64, 32, 8, 16, 16),
@@ -1281,9 +1318,10 @@ def _held(label: str, got, want, atol: float, rtol: float) -> float:
 
 def fa_instance(hd: int) -> str:
     """The attention kernel's row in the kernels line: its hd-80 instance
-    (five 32-byte swizzle blocks a row, ``m64n80k16``) apart."""
+    (five 32-byte swizzle blocks a row, ``m64n80k16``) and its hd-64 one
+    (whisper-tiny's) apart."""
 
-    return "flash_attention_hd80" if hd == 80 else "flash_attention"
+    return {80: "flash_attention_hd80", 64: "flash_attention_hd64"}.get(hd, "flash_attention")
 
 
 def check_model_kernels(dev: torch.device) -> dict[str, float]:
@@ -1291,9 +1329,10 @@ def check_model_kernels(dev: torch.device) -> dict[str, float]:
     the card; returns each kernel's (and the hd-80 instance's) largest
     |error| over the cases."""
 
-    worst = {"flash_attention": 0.0, "flash_attention_hd80": 0.0, "ssm_scan": 0.0}
+    worst = {"flash_attention": 0.0, "flash_attention_hd80": 0.0, "flash_attention_hd64": 0.0,
+             "ssm_scan": 0.0}
     for i, (b, h, kv, sq, sk, hd, causal) in enumerate(FA_CASES):
-        serve_shape = sq == SERVE_PROMPT
+        serve_shape = (b, h, kv, sq, sk, hd, causal) in FA_MODEL_SHAPES
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = fa_inputs(dev, b, h, kv, sq, sk, hd, dtype, seed=i, bshd=serve_shape)
             if serve_shape:  # the model's layout, as prefill calls it
@@ -1307,7 +1346,8 @@ def check_model_kernels(dev: torch.device) -> dict[str, float]:
             worst[fa_instance(hd)] = max(worst[fa_instance(hd)], err)
     log(f"[kernels] flash_attention: {2 * len(FA_CASES)} cases within 2e-5 (f32) / "
         f"2e-2 (bf16) of the plain version, max |err| {worst['flash_attention']:.3g}, "
-        f"at hd 80 {worst['flash_attention_hd80']:.3g}")
+        f"at hd 80 {worst['flash_attention_hd80']:.3g}, at hd 64 "
+        f"{worst['flash_attention_hd64']:.3g}")
 
     for i, (b, s, di, n, bd, ck) in enumerate(SSM_CASES):
         for xdtype in (torch.float32, torch.bfloat16):
@@ -1337,21 +1377,83 @@ def _agreement(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def prefill_launches(cfg) -> tuple[str, int]:
     """The kernel a prefill of ``cfg`` launches, and how often: attention
-    once a layer (dense) or once a shared-attention application (hybrid:
-    once a group of ``shared_attn_every`` Mamba-2 layers, whose scan has no
-    kernel in either package), the scan once a layer (Mamba-1)."""
+    once a layer (dense, MoE, VLM), once an encoder and once a decoder
+    layer (encoder-decoder; cross attention runs the torch path, as the
+    reference's never reaches its kernel), or once a shared-attention
+    application (hybrid: once a group of ``shared_attn_every`` Mamba-2
+    layers, whose scan has no kernel in either package); the scan once a
+    layer (Mamba-1)."""
 
     if cfg.family == "ssm":
         return "ssm_scan", cfg.n_layers
     if cfg.family == "hybrid":
         return "flash_attention", cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return "flash_attention", cfg.encoder_layers + cfg.n_layers
     return "flash_attention", cfg.n_layers
 
 
-def phase_serve(dev: torch.device, arch: str) -> dict:
-    """The model main path at full width and depth, then its checks."""
+def serve_config(arch: str):
+    """``arch``'s published config, its depth cut where ``SERVE_DEPTH`` says."""
 
     cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
+    return cfg
+
+
+def model_inputs(dev: torch.device, cfg, batch: int, seed: int) -> dict:
+    """The VLM's patch embeddings (its first ``n_patches`` positions) or the
+    encoder-decoder's frames, seeded standard normal in the model dtype;
+    nothing for the other families."""
+
+    key, n = {"vlm": ("patch_embeds", cfg.n_patches),
+              "encdec": ("frames", cfg.n_frames)}.get(cfg.family, (None, 0))
+    if key is None:
+        return {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {key: torch.randn(batch, n, cfg.d_model, generator=g, device=dev).to(
+        model_layers.dtype_of(cfg))}
+
+
+def forward_len(cfg, prompt: int) -> int:
+    """Tokens of a decode-against-forward check: the prompt, or one scan
+    chunk where the scan kernel needs S divisible by min(scan_chunk, S) at
+    both S and S - 1."""
+
+    return cfg.scan_chunk if cfg.family in ("ssm", "hybrid") else prompt
+
+
+def decode_config(cfg):
+    """The config decode against forward runs at.  A MoE decode step routes
+    groups of one token, while a prefill at the published group of 256
+    needs S divisible by 256 (2,047 is not) and drops choices past capacity
+    that decode keeps; at ``moe_group_size=1`` no choice is dropped and both
+    route alike, so the MoE check runs there (as
+    ``tests/test_torch_families.py`` does)."""
+
+    return dataclasses.replace(cfg, moe_group_size=1) if cfg.family == "moe" else cfg
+
+
+def decode_vs_forward(dev, cfg, params, n: int, extra: dict):
+    """prefill(tokens[:-1]) + one decode step vs prefill(tokens), at batch 4:
+    the two last-position logits."""
+
+    model = get_model(decode_config(cfg), dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    seq = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, n), generator=g, device=dev)
+    full, _ = model.prefill(params, dict(extra, tokens=seq))
+    _, cache = model.prefill(params, dict(extra, tokens=seq[:, :-1]))
+    step, _ = model.decode_step(params, pad_cache(cache, 1), seq[:, -1:], n - 1)
+    return step[:, 0], full[:, 0]
+
+
+def phase_serve(dev: torch.device, arch: str) -> dict:
+    """The model main path at full width (and depth, but where ``SERVE_DEPTH``
+    cuts it), then its checks."""
+
+    cfg = serve_config(arch)
+    prompt = PROMPT_OF.get(arch, SERVE_PROMPT)
     name, expected = prefill_launches(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()  # the peak below is this arch's own
@@ -1364,8 +1466,9 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
         f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn on the card in "
         f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
-    kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=SERVE_SEED,
-              device=dev, params=params)
+    extra = model_inputs(dev, cfg, SERVE_BATCH, SERVE_SEED + 2)
+    kw = dict(batch=SERVE_BATCH, prompt_len=prompt, gen=SERVE_GEN, seed=SERVE_SEED,
+              device=dev, params=params, **extra)
 
     fa_ops.reset_launches()
     ssm_ops.reset_launches()
@@ -1380,13 +1483,18 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
     toks = res["tokens"]
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_GEN):
         fail(f"{arch}: generated {tuple(toks.shape)} tokens")
-    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        fail(f"{arch}: generated token ids outside the vocabulary")
+    # the padded vocabulary's rows (internvl2: 92,553 -> 92,672; whisper: 51,865
+    # -> 51,968) are random weights that can win a greedy argmax, unmasked in
+    # either package, so tokens are gated at padded_vocab, as serve gates them
+    if not bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()):
+        fail(f"{arch}: generated token ids outside the padded vocabulary")
+    in_padding = int((toks >= cfg.vocab_size).sum())
     if not bool(torch.isfinite(res["prefill_logits"]).all()):
         fail(f"{arch}: non-finite prefill logits")
     log(f"[serve] {arch}: launches on the main path {json.dumps(launches)}; "
         f"first call prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
-        f"{res['decode_s'] * 1e3:.1f} ms; seq0 {toks[0, :12].tolist()}")
+        f"{res['decode_s'] * 1e3:.1f} ms; seq0 {toks[0, :12].tolist()}; "
+        f"{in_padding} of {toks.numel()} tokens in the vocabulary's padding")
 
     warm = serve(cfg, **kw)
     if not torch.equal(warm["tokens"], toks):
@@ -1399,51 +1507,45 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
     # statically)
     with torch.inference_mode():
         gp = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
-        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gp,
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt), generator=gp,
                                 device=dev)
-        profile_prompts = prompts[:PROFILE_BATCH.get(arch, SERVE_BATCH)]
-        pre_wall, pre_busy, pre_ops = device_time(
-            lambda: model.prefill(params, {"tokens": profile_prompts}))
-        top = top_device_ops(lambda: model.prefill(params, {"tokens": profile_prompts}))
-        logits, cache = model.prefill(params, {"tokens": profile_prompts})
+        nb = PROFILE_BATCH.get(arch, SERVE_BATCH)
+        profile_batch = {"tokens": prompts[:nb], **{k: v[:nb] for k, v in extra.items()}}
+        pre_wall, pre_busy, pre_ops = device_time(lambda: model.prefill(params, profile_batch))
+        top = top_device_ops(lambda: model.prefill(params, profile_batch))
+        logits, cache = model.prefill(params, profile_batch)
         cache = pad_cache(cache, 1)
         tok = logits[:, -1].argmax(-1)[:, None]
-        model.decode_step(params, cache, tok, SERVE_PROMPT)
+        model.decode_step(params, cache, tok, prompt)
         dec_wall, dec_busy, dec_ops = device_time(
-            lambda: model.decode_step(params, cache, tok, SERVE_PROMPT), iters=3)
+            lambda: model.decode_step(params, cache, tok, prompt), iters=3)
         del cache, logits
-    log(f"[serve] {arch}: profiled at batch {len(profile_prompts)}: prefill "
-        f"{pre_wall * 1e3:.1f} ms, device busy {pre_busy * 1e3:.1f} ms over {pre_ops} ops; "
-        f"decode step {dec_wall * 1e3 / 3:.1f} ms, device busy {dec_busy * 1e3 / 3:.2f} ms "
-        f"({dec_busy / dec_wall:.1%}) over {dec_ops // 3} ops a step")
+    log(f"[serve] {arch}: profiled at batch {nb}: prefill "
+        f"{pre_wall * 1e3:.1f} ms, device busy {pre_busy * 1e3:.1f} ms ({pre_busy / pre_wall:.1%}) "
+        f"over {pre_ops} ops; decode step {dec_wall * 1e3 / 3:.1f} ms, device busy "
+        f"{dec_busy * 1e3 / 3:.2f} ms ({dec_busy / dec_wall:.1%}) over {dec_ops // 3} ops a step")
     log(f"[serve] {arch}: prefill's largest device ops (ms, calls): {json.dumps(top)}")
     scan_err = (scan_on_model_inputs(model, params, prompts, cfg.n_layers)
                 if name == "ssm_scan" else None)
 
     with torch.inference_mode():
-        # decode against forward: prefill(tokens[:-1]) + one step vs prefill(tokens);
-        # the scan kernel needs S divisible by min(scan_chunk, S) for both lengths
-        n = SERVE_PROMPT if cfg.family == "dense" else cfg.scan_chunk
-        g = torch.Generator(device=dev).manual_seed(7)
-        seq = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, n), generator=g, device=dev)
-        full, _ = model.prefill(params, {"tokens": seq})
-        _, cache = model.prefill(params, {"tokens": seq[:, :-1]})
-        step, _ = model.decode_step(params, pad_cache(cache, 1), seq[:, -1:], n - 1)
-        del cache
-        dec_err = float((step[:, 0].float() - full[:, 0].float()).abs().max())
+        n = forward_len(cfg, prompt)
+        step, full = decode_vs_forward(dev, cfg, params, n, extra)
+        dec_err = float((step.float() - full.float()).abs().max())
         if arch in BF16_GATED:
-            _held(f"{arch} decode vs forward", step[:, 0], full[:, 0], BF16_TOL, BF16_TOL)
-        dec_agree = _agreement(step[:, 0], full[:, 0])
+            _held(f"{arch} decode vs forward", step, full, BF16_TOL, BF16_TOL)
+        dec_agree = _agreement(step, full)
         if dec_agree < 0.5:
             fail(f"{arch}: decode and forward argmax agree on {dec_agree:.0%} of rows")
+        del step, full
 
         # the same prefill through the layer's own paths ("torch")
         plain = get_model(dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch"),
                           dev)
-        hk, _ = model.forward(params, prompts)
+        hk, _ = model.forward(params, prompts, **extra)
         lk = model_layers.lm_logits(cfg, params, hk[:, -32:]).float()
         del hk
-        ht, _ = plain.forward(params, prompts)
+        ht, _ = plain.forward(params, prompts, **extra)
         lt = model_layers.lm_logits(cfg, params, ht[:, -32:]).float()
         del ht
         if not torch.equal(lk[:, -1], res["prefill_logits"].to(dev)):
@@ -1456,23 +1558,32 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
             fail(f"{arch}: torch and kernel prefill argmax agree on {path_agree:.0%} of rows")
     out = {
         "model": arch, "layers": cfg.n_layers, "parameters": n_params,
-        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
-        "launches": launches,
+        "batch": SERVE_BATCH, "prompt": prompt, "gen": SERVE_GEN,
+        "launches": launches, "expected_launches_per_prefill": expected,
+        "tokens_in_vocab_padding": in_padding,
         "prefill_ms": warm["prefill_s"] * 1e3,
         "decode_ms_per_token": warm["decode_s"] * 1e3 / warm["decode_steps"],
         "decode_tokens_per_s": warm["decode_tokens_per_s"],
-        "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / warm["prefill_s"],
+        "prefill_tokens_per_s": SERVE_BATCH * prompt / warm["prefill_s"],
         "first_call_prefill_ms": res["prefill_s"] * 1e3,
         "peak_gib": peak,
         "decode_vs_forward_max_abs_err": dec_err, "decode_vs_forward_argmax": dec_agree,
         "decode_vs_forward_len": n,
+        "decode_vs_forward_moe_group_size": decode_config(cfg).moe_group_size
+        if cfg.family == "moe" else None,
         "torch_vs_kernel_max_abs_err": path_err, "torch_vs_kernel_argmax": path_agree,
         "profiled_prefill_ms": pre_wall * 1e3, "prefill_busy_ms": pre_busy * 1e3,
+        "prefill_busy_share": pre_busy / pre_wall,
         "prefill_device_ops": pre_ops, "profiled_decode_step_ms": dec_wall * 1e3 / 3,
-        "decode_step_busy_ms": dec_busy * 1e3 / 3, "decode_step_device_ops": dec_ops // 3,
-        "prefill_top_device_ops": top, "profiled_batch": len(profile_prompts),
+        "decode_step_busy_ms": dec_busy * 1e3 / 3, "decode_step_busy_share": dec_busy / dec_wall,
+        "decode_step_device_ops": dec_ops // 3,
+        "prefill_top_device_ops": top, "profiled_batch": nb,
         "scan_on_model_inputs_max_abs_err": scan_err,
     }
+    log(f"[serve] {arch}: prefill {out['prefill_ms']:.2f} ms, decode "
+        f"{out['decode_ms_per_token']:.2f} ms a token, peak {peak:.2f} GiB, device busy "
+        f"{out['prefill_busy_share']:.1%} of a prefill and {out['decode_step_busy_share']:.1%} "
+        "of a decode step")
     log(f"[serve] {json.dumps(out)}")
     del params, model
     torch.cuda.empty_cache()
@@ -1544,32 +1655,33 @@ def top_device_ops(fn, k: int = 8) -> list:
 
 
 def phase_f32_paths(dev: torch.device, arch: str) -> dict:
-    """At full width and depth in f32 (TF32 off): decode against forward
-    (prefill(tokens[:-1]) + one decode step vs prefill(tokens)), and the
-    ``"torch"`` prefill against the kernel prefill."""
+    """At full width in f32 (TF32 off), at full depth where it fits
+    (``F32_DEPTH``): decode against forward (prefill(tokens[:-1]) + one
+    decode step vs prefill(tokens)), and the ``"torch"`` prefill against
+    the kernel prefill.  The MoE runs both at ``moe_group_size=1``
+    (``decode_config``)."""
 
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    cfg = dataclasses.replace(serve_config(arch), dtype="float32")
+    if arch in F32_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=F32_DEPTH[arch])
+    cfg = decode_config(cfg)
     model = get_model(cfg, dev)
     plain = get_model(dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch"), dev)
     params = model.init_params(SERVE_SEED)
-    # the scan kernel needs S divisible by min(scan_chunk, S) for both lengths
-    n = SERVE_PROMPT if cfg.family == "dense" else cfg.scan_chunk
-    g = torch.Generator(device=dev).manual_seed(7)
-    seq = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, n), generator=g, device=dev)
+    n = forward_len(cfg, PROMPT_OF.get(arch, SERVE_PROMPT))
+    extra = model_inputs(dev, cfg, SERVE_BATCH, SERVE_SEED + 2)
     with torch.inference_mode():
-        full, _ = model.prefill(params, {"tokens": seq})
-        _, cache = model.prefill(params, {"tokens": seq[:, :-1]})
-        step, _ = model.decode_step(params, pad_cache(cache, 1), seq[:, -1:], n - 1)
-        del cache
-        torch_full, _ = plain.prefill(params, {"tokens": seq})
+        step, full = decode_vs_forward(dev, cfg, params, n, extra)
+        g = torch.Generator(device=dev).manual_seed(7)
+        seq = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, n), generator=g, device=dev)
+        torch_full, _ = plain.prefill(params, dict(extra, tokens=seq))
     tol = (F32_TOL["atol"], F32_TOL["rtol"])
-    out = {"tokens": n,
-           "decode_vs_forward": _held(f"{arch} decode vs forward (f32)", step[:, 0],
-                                      full[:, 0], *tol),
+    out = {"tokens": n, "layers": cfg.n_layers,
+           "decode_vs_forward": _held(f"{arch} decode vs forward (f32)", step, full, *tol),
            "torch_vs_kernel": _held(f"{arch} torch vs kernel prefill (f32)", torch_full[:, 0],
-                                    full[:, 0], *tol)}
-    log(f"[f32] {arch}: full width and depth, {n} tokens: max |logit diff| decode vs "
-        f"forward {out['decode_vs_forward']:.3g}, torch vs kernel prefill "
+                                    full, *tol)}
+    log(f"[f32] {arch}: full width, {cfg.n_layers} layers, {n} tokens: max |logit diff| "
+        f"decode vs forward {out['decode_vs_forward']:.3g}, torch vs kernel prefill "
         f"{out['torch_vs_kernel']:.3g} (atol {tol[0]}, rtol {tol[1]})")
     del params, model, plain
     torch.cuda.empty_cache()
@@ -1578,31 +1690,57 @@ def phase_f32_paths(dev: torch.device, arch: str) -> dict:
 
 def phase_card_vs_cpu(dev: torch.device, arch: str) -> float:
     """Full width, depth 2 (the hybrid: one group of ``shared_attn_every``
-    Mamba-2 layers and its shared attention), f32, TF32 off: one 256-token
-    prompt through the same weights on the card (kernels) and on the CPU
-    (plain versions)."""
+    Mamba-2 layers and its shared attention; whisper-tiny: all 4 + 4
+    layers), f32, TF32 off: one prompt of 256 tokens (the VLM: 512, its
+    first 256 positions patches) through the same weights on the card
+    (kernels) and on the CPU (plain versions).  The parameters move to the
+    CPU after the card's prefill, so no second copy is held.  For the MoE,
+    the share of (token, choice) routes (expert, kept) that differ between
+    the two is reported."""
 
     cfg = get_config(arch)
-    depth = cfg.shared_attn_every if cfg.family == "hybrid" else 2
+    depth = {"hybrid": cfg.shared_attn_every, "encdec": cfg.n_layers}.get(cfg.family, 2)
     cfg = dataclasses.replace(cfg, n_layers=depth, dtype="float32")
     model = get_model(cfg, dev)
     params = model.init_params(SERVE_SEED)
-    cpu_model = get_model(cfg, "cpu")
-    cpu_copy = copy.deepcopy(params).to("cpu")
-    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=torch.Generator().manual_seed(3))
-    with torch.inference_mode():
-        card, _ = model.prefill(params, {"tokens": toks.to(dev)})
-        cpu, _ = cpu_model.prefill(cpu_copy, {"tokens": toks})
-    err = _held(f"{arch} card vs cpu (f32, depth 2)", card.cpu(), cpu, F32_TOL["atol"],
+    toks = torch.randint(0, cfg.vocab_size, (1, 256 + cfg.n_patches),
+                         generator=torch.Generator().manual_seed(3))
+    extra = {k: v.cpu() for k, v in model_inputs(dev, cfg, 1, SERVE_SEED + 3).items()}
+    routing, routes = model_layers.moe_routing, []
+
+    def record(*args, **kw):
+        out = routing(*args, **kw)
+        _, idx, slot, cap = out
+        routes.append((idx.cpu(), (slot < cap).cpu()))
+        return out
+
+    model_layers.moe_routing = record
+    try:
+        with torch.inference_mode():
+            card, _ = model.prefill(params, {"tokens": toks.to(dev),
+                                             **{k: v.to(dev) for k, v in extra.items()}})
+            card = card.cpu()
+            params.to("cpu")
+            torch.cuda.empty_cache()
+            cpu, _ = get_model(cfg, "cpu").prefill(params, {"tokens": toks, **extra})
+    finally:
+        model_layers.moe_routing = routing
+    err = _held(f"{arch} card vs cpu (f32, depth {depth})", card, cpu, F32_TOL["atol"],
                 F32_TOL["rtol"])
-    log(f"[card-vs-cpu] {arch}: full width, {depth} layers, 256 tokens, f32: max |logit diff| "
-        f"{err:.3g} (atol {F32_TOL['atol']}, rtol {F32_TOL['rtol']})")
-    del params, cpu_copy, model
-    torch.cuda.empty_cache()
+    moe = ""
+    if routes:
+        n = len(routes) // 2
+        differ = sum(int(((a[0] != b[0]) | (a[1] != b[1])).sum())
+                     for a, b in zip(routes[:n], routes[n:]))
+        total = sum(a[0].numel() for a in routes[:n])
+        moe = f"; {differ} of {total} (token, choice) routes differ ({differ / total:.4%})"
+    log(f"[card-vs-cpu] {arch}: full width, {depth} layers, {toks.shape[1]} tokens, f32: max "
+        f"|logit diff| {err:.3g} (atol {F32_TOL['atol']}, rtol {F32_TOL['rtol']}){moe}")
+    del params, model
     return err
 
 
-def raw_fa_launch(q, k, v):
+def raw_fa_launch(q, k, v, causal: bool = True):
     """The attention kernel's C entry point with no wrapper around it, on
     the model's (B, S, H, hd) layout."""
 
@@ -1613,7 +1751,7 @@ def raw_fa_launch(q, k, v):
         strides += [t.stride(0), t.stride(2), t.stride(1)]
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             1 if q.dtype == torch.bfloat16 else 0, q.shape[0], q.shape[2], k.shape[2],
-            q.shape[1], k.shape[1], q.shape[3], 1.0 / math.sqrt(q.shape[3]), 1,
+            q.shape[1], k.shape[1], q.shape[3], 1.0 / math.sqrt(q.shape[3]), int(causal),
             *strides, torch.cuda.current_stream().cuda_stream)
     if lib.flash_attention_launch(*args) != 0:
         fail("raw flash_attention launch failed")
@@ -1644,40 +1782,43 @@ def raw_ssm_launch(delta, B, C, x, A):
     return launch
 
 
-def attention_row(dev: torch.device, name: str, arch: str, worst: dict,
+def attention_row(dev: torch.device, name: str, shape: tuple, of: str, worst: dict,
                   launches: dict) -> dict:
-    """The attention kernel (``name``: the row of its instance) at
-    ``arch``'s prefill shape in bf16, beside its bound, its plain version
-    and ``scaled_dot_product_attention``."""
+    """The attention kernel (``name``: the row of its instance) at a prefill
+    shape ``(b, h, kv, sq, sk, hd, causal)`` (the attention of ``of``) in
+    bf16, beside its bound, its plain version and
+    ``scaled_dot_product_attention``."""
 
-    b, h, kv, s, hd = FA_SERVE[arch]
-    q, k, v = fa_inputs(dev, b, h, kv, s, s, hd, torch.bfloat16, seed=5, bshd=True)
+    b, h, kv, s, sk, hd, causal = shape
+    q, k, v = fa_inputs(dev, b, h, kv, s, sk, hd, torch.bfloat16, seed=5, bshd=True)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    flops = 4 * b * h * (s * (s + 1) // 2) * hd  # causal: the pairs qpos >= kpos
+    # causal: the pairs qpos >= kpos (sq == sk)
+    flops = 4 * b * h * (s * (s + 1) // 2 if causal else s * sk) * hd
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    ms = cuda_ms(raw_fa_launch(q, k, v), iters=20, warmup=3)
-    f32_ms = cuda_ms(raw_fa_launch(q.float(), k.float(), v.float()), iters=5, warmup=1)
+    ms = cuda_ms(raw_fa_launch(q, k, v, causal), iters=20, warmup=3)
+    f32_ms = cuda_ms(raw_fa_launch(q.float(), k.float(), v.float(), causal), iters=5, warmup=1)
     return {
         "name": name, "route": "cuda", "source": MODEL_SOURCES["flash_attention"],
         "replaces": REPLACES["flash_attention"], "launches": launches.get(name, 0),
         "max_abs_err": worst[name],
         "ms": ms,
-        "plain_ms": cuda_ms(lambda: fa_ref.flash_attention_ref(qt, kt, vt, causal=True),
+        "plain_ms": cuda_ms(lambda: fa_ref.flash_attention_ref(qt, kt, vt, causal=causal),
                             iters=5, warmup=1),
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes else "bytes",
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20, warmup=3),
-        "call_ms": cuda_ms(lambda: fa_ops.flash_attention_bshd(q, k, v), iters=20, warmup=3),
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20, warmup=3),
+        "call_ms": cuda_ms(lambda: fa_ops.flash_attention_bshd(q, k, v, causal=causal),
+                           iters=20, warmup=3),
         "shape": {"q": list(q.shape), "kv": list(k.shape), "dtype": "bfloat16",
-                  "causal": True, "layout": "bshd", "prefill_of": arch},
+                  "causal": causal, "layout": "bshd", "prefill_of": of},
         "flops": flops, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
         # the f32 path (CUDA cores, no TF32) on the same inputs in f32, against
         # the 67 TFLOP/s f32 rate
         "f32_ms": f32_ms, "f32_achieved_tflops": flops / (f32_ms * 1e-3) / 1e12,
         "f32_ops_ms": flops / F32_FLOPS * 1e3,
-        "library_call": "F.scaled_dot_product_attention(q, k, v, is_causal=True, "
+        "library_call": f"F.scaled_dot_product_attention(q, k, v, is_causal={causal}, "
                         "enable_gqa=True): a yardstick the port never calls",
     }
 
@@ -1685,14 +1826,23 @@ def attention_row(dev: torch.device, name: str, arch: str, worst: dict,
 def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
                          sm_clock_hz: float) -> list[dict]:
     """The model kernels at the serve slice's shapes, in bf16: attention at
-    qwen3-1.7b's prefill (hd 128) and at stablelm-3b's (hd 80, the shape
-    of zamba2-2.7b's shared block too), the scan at falcon-mamba-7b's.
+    qwen3-1.7b's prefill (hd 128), at stablelm-3b's (hd 80, the shape of
+    zamba2-2.7b's shared block too) and at whisper-tiny's encoder (hd 64,
+    non-causal over 1,500 frames), the scan at falcon-mamba-7b's.
     ``ms`` from CUDA events over back-to-back raw launches, ``plain_ms``
     and ``library_ms`` from CUDA events over calls."""
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = [attention_row(dev, "flash_attention", "qwen3-1.7b", worst, launches),
-           attention_row(dev, "flash_attention_hd80", "stablelm-3b", worst, launches)]
+    def prefill_shape(arch):
+        b, h, kv, s, hd = FA_SERVE[arch]
+        return (b, h, kv, s, s, hd, True)
+
+    out = [attention_row(dev, "flash_attention", prefill_shape("qwen3-1.7b"), "qwen3-1.7b",
+                         worst, launches),
+           attention_row(dev, "flash_attention_hd80", prefill_shape("stablelm-3b"),
+                         "stablelm-3b", worst, launches),
+           attention_row(dev, "flash_attention_hd64", WHISPER_ENCODER, "whisper-tiny's encoder",
+                         worst, launches)]
 
     b, s, di, n, _, _ = SSM_CASES[-1]
     args = ssm_inputs(dev, b, s, di, n, torch.bfloat16, seed=6)
@@ -2052,7 +2202,9 @@ def main() -> int:
     kernels[0]["service_scoring"] = service["kernel"]
     model_launches = {}  # summed over the serve runs, per kernel instance
     for arch in SERVE_ARCHS:
+        t_arch = time.perf_counter()
         res = phase_serve(dev, arch)
+        log(f"[serve] {arch}: the serve phase took {time.perf_counter() - t_arch:.1f} s")
         for name, count in res["launches"].items():
             if name == "flash_attention":
                 name = fa_instance(get_config(arch).head_dim_)
@@ -2061,8 +2213,11 @@ def main() -> int:
             model_worst["ssm_scan"] = max(model_worst["ssm_scan"],
                                           *res["scan_on_model_inputs_max_abs_err"].values())
     for arch in SERVE_ARCHS:
+        t_arch = time.perf_counter()
         phase_f32_paths(dev, arch)
         phase_card_vs_cpu(dev, arch)
+        log(f"[f32] {arch}: the f32 and card-vs-cpu phases took "
+            f"{time.perf_counter() - t_arch:.1f} s")
     t_train = time.perf_counter()
     for run in TRAIN_RUNS:
         res = phase_train(dev, *run)

@@ -2,9 +2,9 @@
 (``--arch <id>``), each exporting ``CONFIG`` (the published shape) and
 ``SMOKE`` (a reduced same-family config for CPU tests).
 
-The dense, Mamba-1 and hybrid (Mamba-2 + shared attention) families serve
-so far; the reference's MoE, encoder-decoder and VLM architectures wait for
-their slice of the port (ROADMAP.md, Queue 1).
+All ten of the reference's architectures: dense, MoE (top-k routed
+experts), VLM (prefix patch embeddings), encoder-decoder (whisper-tiny),
+Mamba-1 and the hybrid (Mamba-2 + shared attention).
 """
 
 from __future__ import annotations
@@ -13,15 +13,14 @@ import importlib
 
 from .base import ModelConfig, smoke_variant
 
-ARCHITECTURES = ["qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b", "zamba2-2.7b",
-                 "falcon-mamba-7b"]
+ARCHITECTURES = ["qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b",
+                 "moonshot-v1-16b-a3b", "grok-1-314b", "internvl2-26b", "whisper-tiny",
+                 "zamba2-2.7b", "falcon-mamba-7b"]
 
 
 def _module(arch: str):
     if arch not in ARCHITECTURES:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet (ROADMAP.md, Queue 1); the port "
-            f"serves {ARCHITECTURES}")
+        raise ValueError(f"unknown arch {arch!r}; the port serves {ARCHITECTURES}")
     # qwen3-1.7b -> qwen3_1p7b (dashes -> _, dots -> p)
     return importlib.import_module(
         f"{__name__}.{arch.replace('-', '_').replace('.', 'p')}")

@@ -8,9 +8,12 @@ the CUDA card unless ``--device cpu`` is given.
         --device cpu --batch 4 --prompt-len 32 --gen 32
 
 ``--arch`` takes every arch of ``repro_torch.configs.ARCHITECTURES`` (the
-dense qwen3-1.7b, stablelm-3b, starcoder2-3b and phi4-mini-3.8b, the hybrid
-zamba2-2.7b, the Mamba-1 falcon-mamba-7b); alone it serves the arch's
-reduced smoke config, and ``--full`` serves its published config.
+dense qwen3-1.7b, stablelm-3b, starcoder2-3b and phi4-mini-3.8b, the MoE
+moonshot-v1-16b-a3b and grok-1-314b, the VLM internvl2-26b, the
+encoder-decoder whisper-tiny, the hybrid zamba2-2.7b, the Mamba-1
+falcon-mamba-7b); alone it serves the arch's reduced smoke config, and
+``--full`` serves its published config.  The VLM's patch embeddings and the
+encoder-decoder's frames are zeros, as in the reference's launcher.
 """
 
 from __future__ import annotations
@@ -24,12 +27,15 @@ from ..configs import get_config, get_smoke_config
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import get_model
+from ..models.layers import dtype_of
 from .steps import make_prefill_step, make_serve_step
 from .train import PRESETS
 
 
 def pad_cache(cache: dict, extra: int) -> dict:
-    """Grow attention caches' sequence axis (axis 2) by ``extra`` zero slots."""
+    """Grow the self-attention caches' sequence axis (axis 2) by ``extra``
+    zero slots; the cross-attention caches (over the frames) stay as they
+    are."""
 
     def pad(key, x):
         if key in ("k", "v", "attn_k", "attn_v"):
@@ -48,12 +54,16 @@ def _sync(dev: torch.device) -> None:
 
 @torch.inference_mode()
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
-          device: "torch.device | str | None" = None, params=None) -> dict:
+          device: "torch.device | str | None" = None, params=None,
+          patch_embeds: torch.Tensor | None = None, frames: torch.Tensor | None = None
+          ) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``gen`` tokens greedily (the first from the prefill's logits).
 
     Weights are drawn from ``seed`` unless ``params`` are given, prompts
-    from ``seed + 1``.  Returns the tokens (B, gen), the prefill's
+    from ``seed + 1``.  The VLM's ``patch_embeds`` (B, n_patches, D) and the
+    encoder-decoder's ``frames`` (B, n_frames, D) are zeros in the model
+    dtype unless given.  Returns the tokens (B, gen), the prefill's
     last-position logits (B, V) in f32, and the prefill and decode wall
     times (ended by a device synchronise on a card)."""
 
@@ -66,12 +76,19 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int, seed: int 
     gen_prompts = torch.Generator(device=dev).manual_seed(seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen_prompts,
                             device=dev)
+    inputs = {"tokens": prompts}
+    if cfg.family == "vlm":
+        inputs["patch_embeds"] = (patch_embeds if patch_embeds is not None else torch.zeros(
+            batch, cfg.n_patches, cfg.d_model, dtype=dtype_of(cfg), device=dev))
+    if cfg.family == "encdec":
+        inputs["frames"] = (frames if frames is not None else torch.zeros(
+            batch, cfg.n_frames, cfg.d_model, dtype=dtype_of(cfg), device=dev))
     prefill = make_prefill_step(model)
     step = make_serve_step(model)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, inputs)
     cache = pad_cache(cache, gen)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
     _sync(dev)

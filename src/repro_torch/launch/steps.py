@@ -72,10 +72,12 @@ def _compress_as_reference(grads: dict, cfg: CompressionConfig) -> dict:
     error dropped each step as the reference's step drops it.  Compression
     scales each row (first axis) of a leaf, and the reference stacks a
     per-layer leaf on L, so there a layer's whole leaf is one row: each
-    per-layer leaf (``layers.<i>.<name>``) goes in with a leading axis of 1."""
+    per-layer leaf (``layers.<i>.<name>``, the encoder-decoder's
+    ``encoder.<i>.<name>`` and ``decoder.<i>.<name>``) goes in with a leading
+    axis of 1."""
 
     def per_layer(k: str) -> bool:
-        return k.startswith("layers.")
+        return k.startswith(("layers.", "encoder.", "decoder."))
 
     out, _ = compress_tree({k: g[None] if per_layer(k) else g for k, g in grads.items()},
                            None, cfg)

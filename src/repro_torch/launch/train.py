@@ -1,7 +1,9 @@
 """End-to-end training launcher.
 
-Composes the port's pieces: a model of the dense or Mamba-1 family
-(``--arch``, or a size ``--preset``), sharded synthetic data, AdamW,
+Composes the port's pieces: a model whose batch is tokens alone (the
+dense, MoE, Mamba-1 and hybrid families; ``--arch``, or a size
+``--preset``; the loader makes no patch embeddings or frames, as the
+reference's makes none), sharded synthetic data, AdamW,
 optional gradient compression, heartbeat bookkeeping, and SSDUP+
 burst-buffered async checkpointing with restart (``--resume`` picks up the
 newest committed manifest).  Runs on the CUDA card unless ``--device cpu``

@@ -16,11 +16,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import hybrid, mamba, transformer
-from .params import HybridParams, ModelParams
+from .params import EncDecParams, HybridParams, ModelParams
+from .registry import FAMILY_MODULES
 
 _IMPLS = {"pallas": "kernel", "xla": "torch"}
-_FAMILY_MODULES = {"dense": transformer, "ssm": mamba, "hybrid": hybrid}
 
 
 def config_from_jax(cfg) -> ModelConfig:
@@ -43,51 +42,59 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> ModelParams | HybridParams:
+def params_from_jax(cfg: ModelConfig, tree: dict, device=None
+                    ) -> ModelParams | HybridParams | EncDecParams:
     """The reference's parameter tree (arrays or tensors; per-layer leaves
-    stacked on L under ``"layers"``, or for the hybrid on (G, E) under
-    ``"mamba"`` beside the ``"shared"`` block) as the port's parameters,
-    bit for bit, in the tree's dtypes, on ``device`` (``None``: the CUDA
-    card; raises without one)."""
+    stacked on L under ``"layers"`` (a MoE layer's ``w1`` is (L, E, D, F)),
+    under ``"encoder"`` and ``"decoder"`` for the encoder-decoder, or for
+    the hybrid on (G, E) under ``"mamba"`` beside the ``"shared"`` block) as
+    the port's parameters, bit for bit, in the tree's dtypes, on ``device``
+    (``None``: the CUDA card; raises without one)."""
 
     device = resolve_device(device)
     tensors = {k: ({kk: _tensor(vv) for kk, vv in v.items()} if isinstance(v, dict)
                    else _tensor(v)) for k, v in tree.items()}
-    stacked = tensors.get("layers", tensors.get("mamba", {}))
-    dtypes = {leaf: t.dtype for group in (tensors, stacked, tensors.get("shared", {}))
-              for leaf, t in group.items() if isinstance(t, torch.Tensor)}
-    params = _FAMILY_MODULES[cfg.family].empty_params(cfg, device, dtypes.__getitem__)
+    dtypes = {leaf: t.dtype for v in tensors.values()
+              for leaf, t in (v.items() if isinstance(v, dict) else ())}
+    dtypes.update({leaf: t.dtype for leaf, t in tensors.items() if isinstance(t, torch.Tensor)})
+    params = FAMILY_MODULES[cfg.family].empty_params(cfg, device, dtypes.__getitem__)
     with torch.no_grad():
         for name, t in params.named_parameters():
             parts = name.split(".")
-            if parts[0] == "layers":
-                src = stacked[parts[2]]
-                i = int(parts[1])
-                src = src[divmod(i, src.shape[1])] if "mamba" in tensors else src[i]
+            if len(parts) == 1:
+                src = tensors[name]
             elif parts[0] == "shared":
                 src = tensors["shared"][parts[1]]
-            else:
-                src = tensors[name]
+            elif isinstance(params, HybridParams):
+                src = tensors["mamba"][parts[2]]
+                src = src[divmod(int(parts[1]), src.shape[1])]
+            else:  # a stack on L: "layers", "encoder" or "decoder"
+                src = tensors[parts[0]][parts[2]][int(parts[1])]
             if src.shape != t.shape:
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(t.shape)}")
             t.copy_(src)
     return params
 
 
-def tree_from_params(params: ModelParams | HybridParams) -> dict:
+def tree_from_params(params: ModelParams | HybridParams | EncDecParams) -> dict:
     """The inverse of :func:`params_from_jax`: the port's parameters as the
     reference's tree, ``{"tok_emb": ..., "layers": {"wq": (L, ...)}}`` (the
-    hybrid: ``{"mamba": {"in_proj": (G, E, ...)}, "shared": {...}}``), of
-    detached tensors on the parameters' device (the per-layer leaves
-    stacked, so a copy; the other leaves share storage)."""
+    encoder-decoder: ``"encoder"`` and ``"decoder"`` stacks; the hybrid:
+    ``{"mamba": {"in_proj": (G, E, ...)}, "shared": {...}}``), of detached
+    tensors on the parameters' device (the per-layer leaves stacked, so a
+    copy; the other leaves share storage)."""
+
+    def stacked(layers) -> dict:
+        names = [name for name, _ in layers[0].named_parameters()]
+        return {name: torch.stack([getattr(w, name).detach() for w in layers])
+                for name in names}
 
     tree: dict = {name: t.detach() for name, t in params.named_parameters(recurse=False)}
-    names = [name for name, _ in params.layers[0].named_parameters()]
-    layers = {name: torch.stack([getattr(w, name).detach() for w in params.layers])
-              for name in names}
     if isinstance(params, HybridParams):
-        tree["mamba"] = {name: t.unflatten(0, params.groups) for name, t in layers.items()}
+        tree["mamba"] = {name: t.unflatten(0, params.groups)
+                         for name, t in stacked(params.layers).items()}
         tree["shared"] = {name: t.detach() for name, t in params.shared.named_parameters()}
     else:
-        tree["layers"] = layers
+        for stack in params.STACKS:
+            tree[stack] = stacked(getattr(params, stack))
     return tree

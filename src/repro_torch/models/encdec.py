@@ -1,0 +1,241 @@
+"""Encoder-decoder trunk (the whisper-tiny family), served on one card.
+
+The audio conv frontend is a stub, as in the reference: the batch carries
+precomputed frame embeddings ``frames`` (B, n_frames, D), the output of
+Whisper's two conv layers.  Sinusoidal positions on both stacks, LayerNorm,
+GELU MLP, MHA (kv == heads), no RoPE, no biases on the projections.  The
+encoder's self attention (non-causal) and the decoder's (causal) run
+through the ``flash_attention`` kernel under ``attention_impl="kernel"``;
+cross attention runs the layer's direct path under either impl, as the
+reference's never reaches its kernel.  The head is tied to ``tok_emb``.
+
+Caches keep the reference's stacked layout: ``{"k", "v": (L,B,S,KV,hd),
+"cross_k", "cross_v": (L,B,n_frames,KV,hd)}``; a decode step writes the
+new self-attention k/v into ``k``/``v`` in place and reads the cross cache.
+"""
+
+from __future__ import annotations
+
+import functools
+import types
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+from .params import EncDecParams, leaf_name
+
+
+def _sinusoid(length: int, dim: int) -> np.ndarray:
+    """The prefill table: in f64 with NumPy, cast to f32."""
+
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * i / dim)
+    return np.concatenate([np.sin(angle), np.cos(angle)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_on(length: int, dim: int, dtype: torch.dtype, device: torch.device):
+    # copied to the device once: a copy from pageable host memory would
+    # synchronise the stream at every call
+    return torch.from_numpy(_sinusoid(length, dim)).to(device=device, dtype=dtype)
+
+
+def _sinusoid_at(pos: int, dim: int, device: torch.device) -> torch.Tensor:
+    """The decode row for one position, computed in f32."""
+
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    angle = torch.tensor(float(pos), device=device) / torch.pow(
+        torch.tensor(10_000.0, device=device), 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _attn_shapes(nl: int, cfg: ModelConfig, prefix: str) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return {
+        f"{prefix}wq": (nl, D, H, hd),
+        f"{prefix}wk": (nl, D, KV, hd),
+        f"{prefix}wv": (nl, D, KV, hd),
+        f"{prefix}wo": (nl, H, hd, D),
+    }
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Leaf -> shape, as the reference's ``param_specs`` without the
+    sharding axes."""
+
+    V, D, F = cfg.padded_vocab, cfg.d_model, cfg.d_ff
+    ne, nd = cfg.encoder_layers, cfg.n_layers
+    enc = {
+        "attn_norm": (ne, D), "attn_norm_b": (ne, D),
+        "mlp_norm": (ne, D), "mlp_norm_b": (ne, D),
+        "w1": (ne, D, F), "w2": (ne, F, D),
+        **_attn_shapes(ne, cfg, ""),
+    }
+    dec = {
+        "self_norm": (nd, D), "self_norm_b": (nd, D),
+        "cross_norm": (nd, D), "cross_norm_b": (nd, D),
+        "mlp_norm": (nd, D), "mlp_norm_b": (nd, D),
+        "w1": (nd, D, F), "w2": (nd, F, D),
+        **_attn_shapes(nd, cfg, "self_"),
+        **_attn_shapes(nd, cfg, "cross_"),
+    }
+    return {
+        "tok_emb": (V, D),
+        "enc_final_norm": (D,), "enc_final_norm_b": (D,),
+        "dec_final_norm": (D,), "dec_final_norm_b": (D,),
+        "encoder": enc,
+        "decoder": dec,
+    }
+
+
+def empty_params(cfg: ModelConfig, device, dtype_of_leaf=None) -> EncDecParams:
+    dt = L.dtype_of(cfg)
+    return EncDecParams(param_specs(cfg), dtype_of_leaf or (lambda name: dt),
+                        torch.device(device))
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> EncDecParams:
+    """The reference's init scales (norm scales 1, norm biases 0, the rest
+    0.02 with no depth scaling), drawn in f32 from ``generator`` on its
+    device."""
+
+    params = empty_params(cfg, generator.device)
+    for name, t in params.named_parameters():
+        leaf = leaf_name(name)
+        if leaf.endswith("_b"):
+            t.zero_()
+        elif "norm" in leaf:
+            t.fill_(1)
+        else:
+            t.copy_(torch.randn(t.shape, generator=generator, device=t.device) * 0.02)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# encoder / decoder
+# ---------------------------------------------------------------------------
+
+def _sub(w, prefix: str):
+    """The attention leaves of ``w`` named ``<prefix>wq`` ... as ``wq`` ..."""
+
+    return types.SimpleNamespace(**{k: getattr(w, prefix + k) for k in ("wq", "wk", "wv", "wo")})
+
+
+def _encoder_block(cfg: ModelConfig, w, x, positions):
+    h = L.layer_norm(x, w.attn_norm, w.attn_norm_b, cfg.norm_eps)
+    o, _ = L.attention(cfg, w, h, positions=positions, causal=False)
+    x = x + o
+    h = L.layer_norm(x, w.mlp_norm, w.mlp_norm_b, cfg.norm_eps)
+    return x + L.mlp(cfg, w, h)
+
+
+def encode(cfg: ModelConfig, params: EncDecParams, frames: torch.Tensor) -> torch.Tensor:
+    dt = L.dtype_of(cfg)
+    t = frames.shape[1]
+    x = frames.to(dt) + _sinusoid_on(t, cfg.d_model, dt, frames.device)[None]
+    positions = torch.arange(t, device=frames.device)
+    block = (functools.partial(L.checkpointed, _encoder_block) if cfg.remat == "block"
+             else _encoder_block)
+    for w in params.encoder:
+        x = block(cfg, w, x, positions)
+    return L.layer_norm(x, params.enc_final_norm, params.enc_final_norm_b, cfg.norm_eps)
+
+
+def _decoder_block(cfg: ModelConfig, w, x, positions, enc_out):
+    h = L.layer_norm(x, w.self_norm, w.self_norm_b, cfg.norm_eps)
+    o, (k, v) = L.attention(cfg, _sub(w, "self_"), h, positions=positions, causal=True)
+    x = x + o
+    # cross attention: the encoder's K/V projected with this layer's weights
+    ck, cv = L._matmul(enc_out, w.cross_wk), L._matmul(enc_out, w.cross_wv)
+    h = L.layer_norm(x, w.cross_norm, w.cross_norm_b, cfg.norm_eps)
+    o, _ = L.attention(cfg, _sub(w, "cross_"), h, positions=positions, cross_kv=(ck, cv))
+    x = x + o
+    h = L.layer_norm(x, w.mlp_norm, w.mlp_norm_b, cfg.norm_eps)
+    return x + L.mlp(cfg, w, h), (k, v, ck, cv)
+
+
+def forward(cfg: ModelConfig, params: EncDecParams, tokens: torch.Tensor,
+            frames: torch.Tensor, collect_cache: bool = False):
+    """Encode ``frames``, then the decoder over ``tokens``.  Returns (hidden,
+    cache dict or None)."""
+
+    enc_out = encode(cfg, params, frames)
+    dt = L.dtype_of(cfg)
+    s = tokens.shape[1]
+    x = L.embed_tokens(cfg, params.tok_emb, tokens)
+    x = x + _sinusoid_on(s, cfg.d_model, dt, tokens.device)[None]
+    positions = torch.arange(s, device=tokens.device)
+    block = (functools.partial(L.checkpointed, _decoder_block) if cfg.remat == "block"
+             else _decoder_block)
+    caches = []
+    for w in params.decoder:
+        x, cache = block(cfg, w, x, positions, enc_out)
+        if collect_cache:
+            caches.append(cache)
+    x = L.layer_norm(x, params.dec_final_norm, params.dec_final_norm_b, cfg.norm_eps)
+    if not collect_cache:
+        return x, None
+    return x, {key: torch.stack(ts) for key, ts in zip(("k", "v", "cross_k", "cross_v"),
+                                                      zip(*caches))}
+
+
+def _logits(params: EncDecParams, x: torch.Tensor) -> torch.Tensor:
+    return x @ params.tok_emb.T  # tied head: bsd,vd->bsv
+
+
+def loss_fn(cfg: ModelConfig, params: EncDecParams, batch: dict) -> torch.Tensor:
+    hidden, _ = forward(cfg, params, batch["tokens"], batch["frames"])
+    return L.cross_entropy(cfg, _logits(params, hidden), batch["labels"])
+
+
+def prefill(cfg: ModelConfig, params: EncDecParams, batch: dict):
+    """Encode the frames and run the decoder over the prompt; returns
+    last-position logits (B,1,V) and the cache {"k", "v", "cross_k",
+    "cross_v"}."""
+
+    hidden, cache = forward(cfg, params, batch["tokens"], batch["frames"],
+                            collect_cache=True)
+    return _logits(params, hidden[:, -1:, :]), cache
+
+
+def decode_step(cfg: ModelConfig, params: EncDecParams, cache: dict,
+                tokens: torch.Tensor, pos: int):
+    """One serve step of the decoder: ``tokens`` is (B, 1); ``pos`` the
+    write index into the self-attention cache.  Returns (logits, cache),
+    ``k``/``v`` updated in place."""
+
+    dt = L.dtype_of(cfg)
+    x = L.embed_tokens(cfg, params.tok_emb, tokens)
+    x = x + _sinusoid_at(pos, cfg.d_model, tokens.device).to(dt)[None, None, :]
+    positions = torch.full((tokens.shape[0], 1), int(pos), device=tokens.device)
+    for i, w in enumerate(params.decoder):
+        h = L.layer_norm(x, w.self_norm, w.self_norm_b, cfg.norm_eps)
+        o, _ = L.attention(cfg, _sub(w, "self_"), h, positions=positions,
+                           kv_cache=(cache["k"][i], cache["v"][i]), cache_position=pos)
+        x = x + o
+        h = L.layer_norm(x, w.cross_norm, w.cross_norm_b, cfg.norm_eps)
+        o, _ = L.attention(cfg, _sub(w, "cross_"), h, positions=positions,
+                           cross_kv=(cache["cross_k"][i], cache["cross_v"][i]))
+        x = x + o
+        h = L.layer_norm(x, w.mlp_norm, w.mlp_norm_b, cfg.norm_eps)
+        x = x + L.mlp(cfg, w, h)
+    x = L.layer_norm(x, params.dec_final_norm, params.dec_final_norm_b, cfg.norm_eps)
+    return _logits(params, x), cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """The cache's shapes and dtypes, as tensors on the meta device."""
+
+    dt = L.dtype_of(cfg)
+    kv = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim_)
+    cross = (cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim_)
+    return {key: torch.empty(shape, dtype=dt, device="meta")
+            for key, shape in (("k", kv), ("v", kv), ("cross_k", cross), ("cross_v", cross))}

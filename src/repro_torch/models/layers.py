@@ -1,17 +1,19 @@
 """Model building blocks of the port: the dense (GQA attention + SwiGLU or
-GELU), Mamba-1 and hybrid (Mamba-2 + shared attention) families, for
-serving and training.
+GELU), MoE (top-k routed experts with capacity), encoder-decoder (LayerNorm,
+cross attention), Mamba-1 and hybrid (Mamba-2 + shared attention) families,
+for serving and training.
 
 Every block is ``f(cfg, w, x, ...)`` over a module ``w`` whose parameters
 carry the reference's leaf names (``w.wq``, ``w.in_proj``, ...).  The casts
 fall where the reference puts them, since in bf16 they decide whether the
 two packages agree: matmuls output in the activation dtype; softmax, norm
 and scan statistics are f32; ``delta``, ``B`` and ``C`` are f32 before the
-scan.  Prefill attention goes to the ``flash_attention`` kernel and the
-Mamba-1 prefill scan to the ``ssm_scan`` kernel under ``"kernel"``; under
-``"torch"`` they run the layer's own direct/query-chunked attention and
-chunked scan.  The Mamba-2 scan has no kernel in either package: it runs
-the chunked scan under both.  On one card there is nothing to shard, so
+scan; MoE router logits are f32.  Prefill attention goes to the
+``flash_attention`` kernel and the Mamba-1 prefill scan to the ``ssm_scan``
+kernel under ``"kernel"``; under ``"torch"`` they run the layer's own
+direct/query-chunked attention and chunked scan.  Cross attention, the MoE
+dispatch and the Mamba-2 scan have no kernel in either package: they run
+the same torch code under both.  On one card there is nothing to shard, so
 the reference's sharding annotations have no counterpart here.
 
 Where the reference wraps a body in ``jax.checkpoint`` (a block, a query
@@ -39,6 +41,7 @@ ATTN_DIRECT_MAX_SEQ = 1024  # direct path below this, q-chunked above
 ATTN_Q_CHUNK = 512
 NEG_INF = float(np.finfo(np.float32).min)
 IMPLS = ("kernel", "torch")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 # perf levers of the reference that wait for a later slice of the port
 UNPORTED_LEVERS = ("matmul_weight_dtype", "embed_onehot", "mamba_fused_proj", "param_dtype")
 
@@ -46,9 +49,8 @@ UNPORTED_LEVERS = ("matmul_weight_dtype", "embed_onehot", "mamba_fused_proj", "p
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for what this slice does not serve, instead of ignoring it."""
 
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue 1)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, got {cfg.family!r}")
     if cfg.family == "ssm" and cfg.mamba_version != 1:
         raise NotImplementedError("the ssm family is ported with Mamba-1 blocks only")
     if cfg.family == "hybrid" and cfg.mamba_version != 2:
@@ -92,6 +94,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return ((x32 * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """In f32, with the population variance."""
+
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
@@ -195,7 +208,8 @@ def _project_qkv(cfg: ModelConfig, w, x: torch.Tensor):
 
 
 def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
-              causal: bool = True, kv_cache=None, cache_position: int | None = None):
+              causal: bool = True, kv_cache=None, cache_position: int | None = None,
+              cross_kv=None):
     """GQA attention.
 
     Prefill (``kv_cache=None``): self attention over ``x``; returns (k, v)
@@ -205,12 +219,20 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
     against the cache.  The new k/v are written into the cache in place at
     ``cache_position`` (saving a copy of the cache per step), and the
     updated cache is returned.
+
+    Cross attention (``cross_kv=(k, v)``, the encoder's projected keys and
+    values): no mask, f32 softmax, always the direct path (the reference's
+    never reaches its kernel); returns (out, None).
     """
 
     hd = cfg.head_dim_
     n_rep = cfg.n_heads // cfg.n_kv_heads
     scale = 1.0 / math.sqrt(hd)
     smax = getattr(torch, cfg.softmax_dtype)
+
+    if cross_kv is not None:
+        o = _attend_direct(_matmul(x, w.wq), *cross_kv, n_rep, scale, causal=False)
+        return _matmul(o, w.wo, axes=2), None
 
     q, k, v = _project_qkv(cfg, w, x)
     if cfg.rope_theta > 0:
@@ -254,6 +276,77 @@ def mlp(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")
     return _matmul(h, w.w2)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k, capacity-based grouped dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_routing(cfg: ModelConfig, w, x: torch.Tensor):
+    """The routing of :func:`moe_mlp` over ``x`` (B, S, D): tokens in groups
+    of ``g = min(moe_group_size, S)``, each choosing its top
+    ``experts_per_token`` experts; each (token, choice) takes the next slot
+    of its expert's buffer of ``cap`` slots in its group, token by token and
+    by rank within a token, and is dropped past ``cap``.
+
+    Returns ``(gate_vals, gate_idx, slot, cap)``: the normalised gate
+    values (B, NG, g, k) f32, the expert indices (B, NG, g, k), the
+    capacity slots (B, NG, g, k; a choice is kept iff its slot < cap) and
+    ``cap``."""
+
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    g = min(cfg.moe_group_size, s)
+    if s % g != 0:
+        raise ValueError(f"seq {s} not divisible by moe group {g}")
+    cap = max(math.ceil(g * k / e * cfg.capacity_factor), 1)
+    # f32 logits from the operands' values, as preferred_element_type=f32
+    logits = x.reshape(b, s // g, g, d).float() @ w.router.float()
+    probs = torch.softmax(logits, dim=-1)
+    # top-k with ties to the lower index (jax.lax.top_k's order): a stable sort
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = gate_vals[..., :k], gate_idx[..., :k]
+    gate_vals = gate_vals / (torch.sum(gate_vals, dim=-1, keepdim=True) + 1e-9)
+    # exclusive count of earlier choices of the same expert, over the
+    # group's (token, rank) pairs in token-major order
+    onehot = F.one_hot(gate_idx, e).reshape(b, s // g, g * k, e)
+    earlier = (torch.cumsum(onehot, dim=2) - onehot).reshape(b, s // g, g, k, e)
+    slot = torch.gather(earlier, -1, gate_idx[..., None])[..., 0]
+    return gate_vals, gate_idx, slot, cap
+
+
+def moe_mlp(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
+    """Top-k capacity-dropped MoE with routing groups: tokens reach their
+    experts' capacity slots through a one-hot dispatch tensor (B, NG, g, E,
+    C) and come back through the combine tensor (the same with the gate
+    values), both in ``moe_dispatch_dtype`` and cast to the activation dtype
+    for the products, as the reference's einsums.  Each slot holds at most
+    one token, so the dispatch copies values exactly.  Every expert runs on
+    its ``C`` slots whether they are filled or not."""
+
+    b, s, d = x.shape
+    e = cfg.n_experts
+    gate_vals, gate_idx, slot, cap = moe_routing(cfg, w, x)
+    g = slot.shape[2]
+    ddt = getattr(torch, cfg.moe_dispatch_dtype)
+    kept = F.one_hot(gate_idx, e).float() * (slot < cap)[..., None]  # (B,NG,g,k,E)
+    # a dropped choice's slot is cap, a class cut off below
+    cap_slot = F.one_hot(torch.clamp(slot, max=cap), cap + 1)[..., :cap].float()
+    dispatch = torch.einsum("bngke,bngkc->bngec", kept, cap_slot).to(ddt)
+    combine = torch.einsum("bngke,bngkc->bngec", kept * gate_vals[..., None],
+                           cap_slot).to(ddt)
+
+    dt = x.dtype
+    xg = x.reshape(b, s // g, g, d)
+    ein = torch.einsum("bngd,bngec->bnecd", xg, dispatch.to(dt))
+    h = torch.einsum("bnecd,edf->bnecf", ein, w.w1)
+    if cfg.swiglu:
+        h = F.silu(h) * torch.einsum("bnecd,edf->bnecf", ein, w.w3)
+    else:
+        h = F.gelu(h, approximate="tanh")
+    eout = torch.einsum("bnecf,efd->bnecd", h, w.w2)
+    out = torch.einsum("bnecd,bngec->bngd", eout, combine.to(dt))
+    return out.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------

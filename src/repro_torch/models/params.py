@@ -10,7 +10,9 @@ layers in a group, and keeps one un-stacked ``"shared"`` block:
 :class:`HybridParams` keeps them as a flat ``layers`` list and a ``shared``
 module (``layers[i]`` is the reference's ``params["mamba"][...][i // E,
 i % E]``), so the flat ``named_parameters()`` names stay unambiguous
-(``layers.7.in_proj``, ``shared.wq``).
+(``layers.7.in_proj``, ``shared.wq``).  The encoder-decoder's two stacks
+are :class:`EncDecParams`' ``encoder`` and ``decoder`` lists
+(``encoder.1.wq``, ``decoder.0.cross_wk``).
 
 Parameters are made with ``requires_grad=False``, so serving records no
 graph; training turns them on with ``params.requires_grad_()``
@@ -39,16 +41,26 @@ class Leaves(nn.Module):
 
 class ModelParams(Leaves):
     """``specs``: the family's ``param_specs`` (leaf -> shape, with the
-    per-layer shapes under ``"layers"`` stacked on L)."""
+    per-layer shapes under each of ``STACKS`` stacked on its depth)."""
+
+    STACKS = ("layers",)
 
     def __init__(self, specs: dict, dtype_of_leaf: Callable[[str], torch.dtype],
                  device: torch.device):
-        super().__init__({k: v for k, v in specs.items() if k != "layers"},
+        super().__init__({k: v for k, v in specs.items() if k not in self.STACKS},
                          dtype_of_leaf, device)
-        per_layer = {k: shape[1:] for k, shape in specs["layers"].items()}
-        n_layers = next(iter(specs["layers"].values()))[0]
-        self.layers = nn.ModuleList(
-            Leaves(per_layer, dtype_of_leaf, device) for _ in range(n_layers))
+        for stack in self.STACKS:
+            per_layer = {k: shape[1:] for k, shape in specs[stack].items()}
+            depth = next(iter(specs[stack].values()))[0]
+            setattr(self, stack, nn.ModuleList(
+                Leaves(per_layer, dtype_of_leaf, device) for _ in range(depth)))
+
+
+class EncDecParams(ModelParams):
+    """The encoder-decoder's: per-layer leaves under ``"encoder"`` and
+    ``"decoder"``, each stacked on its own depth."""
+
+    STACKS = ("encoder", "decoder")
 
 
 class HybridParams(Leaves):

@@ -1,4 +1,4 @@
-"""Uniform model API over the ported families (``--arch`` dispatch)."""
+"""Uniform model API over the families (``--arch`` dispatch)."""
 
 from __future__ import annotations
 
@@ -9,9 +9,16 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import hybrid, layers, mamba, transformer
+from . import encdec, hybrid, layers, mamba, transformer
 
-_FAMILY_MODULES = {"dense": transformer, "ssm": mamba, "hybrid": hybrid}
+FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "encdec": encdec,
+    "ssm": mamba,
+    "hybrid": hybrid,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,7 +27,7 @@ class ModelApi:
     device: torch.device
     param_specs: Callable  # () -> leaf shapes
     init_params: Callable  # (seed or torch.Generator) -> ModelParams on device
-    forward: Callable  # (params, tokens) -> (hidden, None)
+    forward: Callable  # (params, tokens, **inputs) -> (hidden, None)
     loss_fn: Callable  # (params, batch) -> scalar
     prefill: Callable  # (params, batch) -> (logits, cache)
     decode_step: Callable  # (params, cache, tokens, pos) -> (logits, cache)
@@ -29,12 +36,12 @@ class ModelApi:
 
 def get_model(cfg: ModelConfig, device: "torch.device | str | None" = None) -> ModelApi:
     """The model API of ``cfg`` on ``device`` (``None``: the CUDA card,
-    raising without one).  Raises ``NotImplementedError`` for a family or
-    perf lever this slice of the port does not serve."""
+    raising without one).  Raises ``NotImplementedError`` for a perf lever
+    the port does not have yet, ``ValueError`` for an unknown family."""
 
     dev = resolve_device(device)
     layers.check_ported(cfg)
-    mod = _FAMILY_MODULES[cfg.family]
+    mod = FAMILY_MODULES[cfg.family]
 
     def init_params(seed):
         gen = seed if isinstance(seed, torch.Generator) else (
@@ -48,10 +55,38 @@ def get_model(cfg: ModelConfig, device: "torch.device | str | None" = None) -> M
         device=dev,
         param_specs=lambda: mod.param_specs(cfg),
         init_params=init_params,
-        forward=lambda params, tokens: mod.forward(cfg, params, tokens),
+        # inputs: the VLM's patch_embeds, the encoder-decoder's frames
+        forward=lambda params, tokens, **inputs: mod.forward(cfg, params, tokens, **inputs),
         loss_fn=lambda params, batch: mod.loss_fn(cfg, params, batch),
         prefill=lambda params, batch: mod.prefill(cfg, params, batch),
         decode_step=lambda params, cache, tokens, pos: mod.decode_step(
             cfg, params, cache, tokens, pos),
         abstract_cache=lambda batch, seq: mod.abstract_cache(cfg, batch, seq),
     )
+
+
+def input_specs(cfg: ModelConfig, kind: str, batch: int, seq: int) -> dict:
+    """Meta tensors standing for every model input of a step kind:
+    ``"train"`` (tokens and labels), ``"prefill"`` (tokens) or ``"decode"``
+    (the (B, 1) token batch; the cache comes from ``abstract_cache``).  The
+    modality frontends are stubs: the VLM's batch adds ``patch_embeds`` (B,
+    n_patches, D), the encoder-decoder's ``frames`` (B, n_frames, D), both
+    precomputed embeddings in the model dtype."""
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind == "train":
+        specs = {"tokens": meta((batch, seq), torch.int64),
+                 "labels": meta((batch, seq), torch.int64)}
+    elif kind == "prefill":
+        specs = {"tokens": meta((batch, seq), torch.int64)}
+    elif kind == "decode":
+        specs = {"tokens": meta((batch, 1), torch.int64)}
+    else:
+        raise ValueError(kind)
+    if cfg.family == "vlm" and kind != "decode":
+        specs["patch_embeds"] = meta((batch, cfg.n_patches, cfg.d_model), layers.dtype_of(cfg))
+    if cfg.family == "encdec" and kind != "decode":
+        specs["frames"] = meta((batch, cfg.n_frames, cfg.d_model), layers.dtype_of(cfg))
+    return specs

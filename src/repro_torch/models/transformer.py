@@ -1,5 +1,8 @@
-"""Decoder-only LM trunk of the dense family (GQA, optional qk-norm, RoPE,
-SwiGLU), trained and served on one card.
+"""Decoder-only LM trunk of the dense, MoE and VLM families (GQA, optional
+qk-norm, RoPE, SwiGLU or GELU; MoE layers route each token to its top-k
+experts; the VLM's patch embeddings take the first positions of the
+sequence, its ViT frontend a stub as in the reference), trained and served
+on one card.
 
 The layer loop is a Python loop over ``params.layers``; with
 ``cfg.remat == "block"`` each block is recomputed in the backward pass.
@@ -8,6 +11,9 @@ Caches keep the reference's stacked layout at the public functions:
 
 * ``loss_fn(cfg, params, batch)``                  — mean next-token NLL
 * ``prefill(cfg, params, batch)``                  — last logits + KV cache
+
+``batch`` holds ``tokens`` (and ``labels`` for the loss); the VLM's also
+``patch_embeds`` (B, n_patches, D).
 * ``decode_step(cfg, params, cache, tokens, pos)`` — one serve step; writes
   the new k/v into ``cache`` in place
 """
@@ -39,10 +45,13 @@ def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     if cfg.qk_norm:
         s["q_norm"] = (nl, hd)
         s["k_norm"] = (nl, hd)
-    s["w1"] = (nl, D, F)
-    s["w2"] = (nl, F, D)
+    experts = (cfg.n_experts,) if cfg.family == "moe" else ()
+    if experts:
+        s["router"] = (nl, D, cfg.n_experts)
+    s["w1"] = (nl, *experts, D, F)
+    s["w2"] = (nl, *experts, F, D)
     if cfg.swiglu:
-        s["w3"] = (nl, D, F)
+        s["w3"] = (nl, *experts, D, F)
     return s
 
 
@@ -65,8 +74,9 @@ def empty_params(cfg: ModelConfig, device, dtype_of_leaf=None) -> ModelParams:
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
-    """The reference's init scales (norms 1, embeddings 0.02, the rest
-    0.02/sqrt(2L)), drawn in f32 from ``generator`` on its device."""
+    """The reference's init scales (norms 1, embeddings and the MoE router
+    0.02, the rest 0.02/sqrt(2L)), drawn in f32 from ``generator`` on its
+    device."""
 
     params = empty_params(cfg, generator.device)
     for name, t in params.named_parameters():
@@ -74,7 +84,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
         if "norm" in leaf:
             t.fill_(1)
             continue
-        scale = 0.02 if "emb" in leaf else 0.02 / math.sqrt(2 * cfg.n_layers)
+        scale = (0.02 if "emb" in leaf or "router" in leaf
+                 else 0.02 / math.sqrt(2 * cfg.n_layers))
         t.copy_(torch.randn(t.shape, generator=generator, device=t.device) * scale)
     return params
 
@@ -84,15 +95,27 @@ def _block(cfg: ModelConfig, w, x, positions, kv_cache=None, cache_position=None
                                positions=positions, kv_cache=kv_cache,
                                cache_position=cache_position)
     x = x + h
-    x = x + L.mlp(cfg, w, L.rms_norm(x, w.mlp_norm, cfg.norm_eps))
+    mlp = L.moe_mlp if cfg.family == "moe" else L.mlp
+    x = x + mlp(cfg, w, L.rms_norm(x, w.mlp_norm, cfg.norm_eps))
     return x, new_cache
 
 
+def _embed_inputs(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
+                  patch_embeds: torch.Tensor | None) -> torch.Tensor:
+    x = L.embed_tokens(cfg, params.tok_emb, tokens)
+    if cfg.family == "vlm":
+        if patch_embeds is None:
+            raise ValueError("vlm family needs patch_embeds")
+        # patches occupy the first P positions (the ViT frontend is a stub)
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, patch_embeds.shape[1]:]], dim=1)
+    return x
+
+
 def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
-            collect_cache: bool = False):
+            patch_embeds: torch.Tensor | None = None, collect_cache: bool = False):
     """Full-sequence forward.  Returns (hidden, (k, v) stacked on L or None)."""
 
-    x = L.embed_tokens(cfg, params.tok_emb, tokens)
+    x = _embed_inputs(cfg, params, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     ks, vs = [], []
     block = functools.partial(L.checkpointed, _block) if cfg.remat == "block" else _block
@@ -106,7 +129,7 @@ def forward(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: ModelParams, batch: dict) -> torch.Tensor:
-    hidden, _ = forward(cfg, params, batch["tokens"])
+    hidden, _ = forward(cfg, params, batch["tokens"], batch.get("patch_embeds"))
     logits = L.lm_logits(cfg, params, hidden)
     return L.cross_entropy(cfg, logits, batch["labels"])
 
@@ -115,7 +138,8 @@ def prefill(cfg: ModelConfig, params: ModelParams, batch: dict):
     """Run the full prompt; returns last-position logits (B,1,V) and the
     stacked KV cache {"k": (L,B,S,KV,hd), "v": ...}."""
 
-    hidden, (k, v) = forward(cfg, params, batch["tokens"], collect_cache=True)
+    hidden, (k, v) = forward(cfg, params, batch["tokens"], batch.get("patch_embeds"),
+                             collect_cache=True)
     return L.lm_logits(cfg, params, hidden[:, -1:, :]), {"k": k, "v": v}
 
 

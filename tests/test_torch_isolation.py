@@ -91,7 +91,8 @@ with tempfile.TemporaryDirectory() as root:
     assert (store.load(1)["w"] == np.arange(1000, dtype=np.float32)).all()
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve import serve
-for arch in ("qwen3-1.7b", "stablelm-3b", "zamba2-2.7b", "falcon-mamba-7b"):
+for arch in ("qwen3-1.7b", "stablelm-3b", "zamba2-2.7b", "falcon-mamba-7b",
+             "moonshot-v1-16b-a3b", "grok-1-314b", "internvl2-26b", "whisper-tiny"):
     out = serve(get_smoke_config(arch), batch=2, prompt_len=8, gen=3, device="cpu")
     assert out["tokens"].shape == (2, 3)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
@@ -156,30 +157,37 @@ def test_other_entry_points_need_cuda_by_default(no_cuda):
 
 
 def test_model_entry_points_need_cuda_by_default(no_cuda):
-    cfg = get_smoke_config("qwen3-1.7b")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        get_model(cfg)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve(cfg, batch=1, prompt_len=4, gen=1)
-    assert get_model(cfg, device="cpu").device.type == "cpu"
+    for arch in ("qwen3-1.7b", "moonshot-v1-16b-a3b", "internvl2-26b", "whisper-tiny"):
+        cfg = get_smoke_config(arch)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_model(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve(cfg, batch=1, prompt_len=4, gen=1)
+        assert get_model(cfg, device="cpu").device.type == "cpu"
 
 
 def _reference_shaped_tree(params) -> dict:
     """A parameter tree in the reference's form (NumPy leaves, per-layer
-    leaves stacked on L), made from the port's own parameters."""
+    leaves stacked on L under ``"layers"``, or under ``"encoder"`` and
+    ``"decoder"``), made from the port's own parameters."""
 
-    tree: dict = {"layers": {}}
+    tree: dict = {}
     for name, t in params.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":
-            tree["layers"].setdefault(parts[-1], {})[int(parts[1])] = t.detach().numpy()
+        if len(parts) == 3:
+            tree.setdefault(parts[0], {}).setdefault(parts[-1], {})[int(parts[1])] = \
+                t.detach().numpy()
         else:
             tree[parts[-1]] = t.detach().numpy()
-    tree["layers"] = {k: np.stack([v[i] for i in sorted(v)]) for k, v in tree["layers"].items()}
+    for stack in ("layers", "encoder", "decoder"):
+        if stack in tree:
+            tree[stack] = {k: np.stack([v[i] for i in sorted(v)])
+                           for k, v in tree[stack].items()}
     return tree
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b", "moonshot-v1-16b-a3b",
+                                  "whisper-tiny"])
 def test_params_from_jax_needs_cuda_by_default(no_cuda, arch):
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")  # NumPy has no bf16
     params = get_model(cfg, device="cpu").init_params(0)
@@ -194,9 +202,11 @@ def test_params_from_jax_needs_cuda_by_default(no_cuda, arch):
 def test_scan_covers_the_model_modules():
     names = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
     assert {"models/hybrid.py", "models/mamba.py", "models/transformer.py",
-            "models/layers.py", "models/params.py", "models/convert.py",
+            "models/encdec.py", "models/layers.py", "models/params.py", "models/convert.py",
             "configs/zamba2_2p7b.py", "configs/stablelm_3b.py", "configs/phi4_mini_3p8b.py",
-            "configs/starcoder2_3b.py"} <= names
+            "configs/starcoder2_3b.py", "configs/moonshot_v1_16b_a3b.py",
+            "configs/grok_1_314b.py", "configs/internvl2_26b.py",
+            "configs/whisper_tiny.py"} <= names
 
 
 def test_scan_covers_the_training_modules():

@@ -136,13 +136,22 @@ def test_init_draws_the_reference_scales(arch):
 
 
 def test_unported_config_raises():
+    """The four perf levers still wait for their slice; an unknown family
+    or arch, a Mamba version its family does not run, and an impl of the
+    reference's names raise."""
+
     cfg = get_smoke_config("qwen3-1.7b")
-    for over in ({"family": "moe"}, {"embed_onehot": True},
-                 {"matmul_weight_dtype": "float8_e4m3fn"}, {"param_dtype": "float8_e4m3fn"}):
+    for over in ({"embed_onehot": True}, {"matmul_weight_dtype": "float8_e4m3fn"},
+                 {"param_dtype": "float8_e4m3fn"}, {"mamba_fused_proj": True}):
         with pytest.raises(NotImplementedError):
             get_model(dataclasses.replace(cfg, **over), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        get_config("whisper-tiny")
+    with pytest.raises(NotImplementedError, match="mamba_fused_proj"):
+        get_model(dataclasses.replace(get_smoke_config("falcon-mamba-7b"),
+                                      mamba_fused_proj=True), "cpu")
+    with pytest.raises(ValueError, match="family"):
+        get_model(dataclasses.replace(cfg, family="diffusion"), "cpu")
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("llama-7b")
     with pytest.raises(NotImplementedError, match="Mamba-1"):
         get_model(dataclasses.replace(get_smoke_config("falcon-mamba-7b"), mamba_version=2),
                   "cpu")
@@ -150,6 +159,8 @@ def test_unported_config_raises():
         get_model(dataclasses.replace(get_smoke_config("zamba2-2.7b"), mamba_version=1), "cpu")
     with pytest.raises(ValueError, match="attention_impl"):
         get_model(dataclasses.replace(cfg, attention_impl="pallas"), "cpu")
+    for arch in ("moonshot-v1-16b-a3b", "grok-1-314b", "internvl2-26b", "whisper-tiny"):
+        assert get_model(get_smoke_config(arch), "cpu").cfg.name.startswith(arch)
 
 
 # -- layers ---------------------------------------------------------------

@@ -103,6 +103,21 @@ def test_flash_attention_bf16_every_head_dim(card, hd, sq, sk, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_at_the_whisper_encoder_shape(card, dtype):
+    """whisper-tiny's encoder self attention: (4, 1500, 6, 64) in the
+    model's (B, S, H, hd) layout, non-causal, 1,500 frames a ragged last
+    tile."""
+
+    g = torch.Generator(device=card).manual_seed(1500)
+    q, k, v = (torch.randn(4, 1500, 6, 64, generator=g, device=card).to(dtype)
+               for _ in range(3))
+    got = fa_ops.flash_attention_bshd(q, k, v, causal=False)
+    want = fa_ref.flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), causal=False)
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).float(), atol=FA_TOL[dtype],
+                               rtol=FA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_attention_refuses_a_head_dim_without_an_instance(card, dtype):
     """hd 96 has no kernel instance: the wrapper raises on the card, with
     no fallback to the plain version."""
@@ -202,11 +217,15 @@ def test_ssm_scan_on_delta_as_the_model_makes_it(card, n, xdtype):
 
 @pytest.mark.parametrize("arch,head_dim", [
     ("qwen3-1.7b", None), ("stablelm-3b", None), ("stablelm-3b", 80), ("zamba2-2.7b", None),
-    ("zamba2-2.7b", 80), ("falcon-mamba-7b", None)])
+    ("zamba2-2.7b", 80), ("falcon-mamba-7b", None), ("moonshot-v1-16b-a3b", None),
+    ("grok-1-314b", None), ("internvl2-26b", None), ("whisper-tiny", None),
+    ("whisper-tiny", 64)])
 def test_serve_smoke_config_goes_through_the_kernel(card, arch, head_dim):
     """One kernel launch a layer of the prefill (a shared-attention
-    application of the hybrid: one a group); ``head_dim`` 80 replaces the
-    smoke config's 16, as the published stablelm-3b and zamba2-2.7b."""
+    application of the hybrid: one a group; the encoder-decoder: one an
+    encoder layer and one a decoder layer, its cross attention on the torch
+    path); ``head_dim`` 80 or 64 replaces the smoke config's 16, as the
+    published stablelm-3b and zamba2-2.7b, or whisper-tiny."""
 
     cfg = get_smoke_config(arch)
     if head_dim is not None:
@@ -215,7 +234,8 @@ def test_serve_smoke_config_goes_through_the_kernel(card, arch, head_dim):
     ssm_ops.reset_launches()
     res = serve(cfg, batch=2, prompt_len=16, gen=4, seed=0, device=card)
     launched = fa_ops.launches["flash_attention"] + ssm_ops.launches["ssm_scan"]
-    per_prefill = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else cfg.n_layers
+    per_prefill = {"hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1),
+                   "encdec": cfg.encoder_layers + cfg.n_layers}.get(cfg.family, cfg.n_layers)
     assert launched == per_prefill
     plain = serve(dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch"),
                   batch=2, prompt_len=16, gen=4, seed=0, device=card)

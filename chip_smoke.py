@@ -92,23 +92,42 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    of six; whisper: all 4 + 4), one 256-token prompt (internvl2: 512),
    f32 with TF32 off, the same weights on both, with the share of MoE
    routes that differ;
-8. train   — ``make_train_step`` on the torch paths (the kernels have no
-   backward pass) in bf16 with ``remat="block"``, batch 4 x 2048 from
-   ``ShardedLoader(seed=0)``, AdamW at lr 3e-4: qwen3-1.7b at its published
-   config for 6 steps, falcon-mamba-7b at full width and depth 8 for 3
-   steps, each with ``save_async`` mid-run and ``save_blocking`` at the
-   end through ``Checkpointer`` -> ``TieredCheckpointStore``.  Gates:
-   finite loss and grad_norm every step; the restored parameters bit-equal
-   to the live ones; each manifest in the reference's layout; the async
-   checkpoint equal to the parameters at its step; the restored
-   parameters' kernel prefill (the serve shape) bit-equal to the live
-   ones', with one kernel launch a layer a prefill, and within the serve
-   tolerance of the torch prefill.  Then qwen3-1.7b at depth 2 in f32,
-   3 steps of batch 1 x 256 on the card and on the CPU
-   (``TRAIN_F32_TOL``), and the training CLI: the tiny preset for 40
-   steps with a checkpoint every 20, then resumed to 60 (exit 0, the
-   resume line, the loss falling);
-9. model-kernel timings — ``flash_attention`` and ``ssm_scan`` at the
+8. levers  — qwen3-1.7b at its published config served unlevered, with
+   ``embed_onehot`` (prefill logits and tokens bit-equal to the gather's)
+   and with ``matmul_weight_dtype="float8_e4m3fn"`` (hidden states and
+   logits bit-equal to the unlevered model on weights rounded through fp8
+   beforehand; decode against forward at the bf16 gate), each run's
+   prefill and decode times; grok-1-314b with ``param_dtype`` fp8 and
+   ``matmul_weight_dtype`` bf16: every leaf fp8, prefill logits at depth 4
+   bit-equal to the bf16 model on the same values, then served at 13
+   layers (``GROK_FP8_SERVE_DEPTH``; finite logits, tokens below the
+   padded vocabulary);
+   train   — ``make_train_step`` on the torch paths (the kernels have no
+   backward pass) in bf16 with ``remat="block"``, from
+   ``ShardedLoader(seed=0)``, AdamW at lr 3e-4, at full width:
+   qwen3-1.7b at its published config for 6 steps, falcon-mamba-7b at
+   depth 8, moonshot-v1-16b-a3b and internvl2-26b (seeded patch
+   embeddings) at depth 4 and whisper-tiny whole (seeded frames, its
+   448-token text context) for 3 steps at batch 4 x 2048, and
+   zamba2-2.7b whole at 1 x 2048 with gradient compression (one row a
+   group of six layers) for 2 steps; each with ``save_async`` mid-run
+   and ``save_blocking`` at the end through ``Checkpointer`` ->
+   ``TieredCheckpointStore``.  Gates: finite loss and grad_norm every
+   step; the restored parameters bit-equal to the live ones; each
+   manifest in the reference's layout (every stack under its name); the
+   async checkpoint equal to the parameters at its step; the restored
+   parameters' kernel prefill bit-equal to the live ones', with one
+   kernel launch a layer (a shared-attention group) a prefill, and within
+   the serve tolerance of the torch prefill (zamba2: argmax agreement, as
+   in serve).  Then falcon-mamba-7b at depth 8 one step with
+   ``mamba_fused_proj`` from the weights and batch of its first step
+   above (losses within 2e-3; each peak); train steps in f32 on the card and on the CPU from weights
+   drawn on the card (``TRAIN_F32_TOL``; qwen3-1.7b at depth 2 and
+   whisper whole for 3 steps, moonshot and internvl2 at depth 1 and
+   zamba2 at 6 over 64 tokens for 2; MoE routes that differ counted); and
+   the training CLI: the tiny preset for 40 steps with a checkpoint every
+   20, then resumed to 60 (exit 0, the resume line, the loss falling);
+10. model-kernel timings — ``flash_attention`` and ``ssm_scan`` at the
    shapes the serve path gives them, beside their bounds, plain versions
    and (attention) ``scaled_dot_product_attention``; attention in bf16
    (tensor cores) and, as ``f32_ms``, in f32 (CUDA cores), at qwen3's
@@ -127,6 +146,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -135,6 +155,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -163,13 +184,14 @@ from repro_torch.service import BurstBufferService, FaultInjector  # noqa: E402
 from repro_torch.service import loop as service_loop  # noqa: E402
 from repro_torch.service import poisson_arrivals, scripted  # noqa: E402
 from repro_torch.testing.service import ReshardCountingService, same_service_result  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import frontend_inputs, get_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.checkpoint import Checkpointer, TieredCheckpointStore  # noqa: E402
 from repro_torch.data import DataConfig, ShardedLoader  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models.convert import params_from_jax, tree_from_params  # noqa: E402
-from repro_torch.optim import AdamWConfig, init_state, linear_warmup_cosine  # noqa: E402
+from repro_torch.optim import AdamWConfig, CompressionConfig, init_state  # noqa: E402
+from repro_torch.optim import linear_warmup_cosine  # noqa: E402
 from repro_torch.testing import golden  # noqa: E402
 from repro_torch.testing.stream_rows import KINDS, stream_rows  # noqa: E402
 from repro_torch.testing.traces import golden_trace, sweep_trace, trace_fingerprint  # noqa: E402
@@ -1402,20 +1424,6 @@ def serve_config(arch: str):
     return cfg
 
 
-def model_inputs(dev: torch.device, cfg, batch: int, seed: int) -> dict:
-    """The VLM's patch embeddings (its first ``n_patches`` positions) or the
-    encoder-decoder's frames, seeded standard normal in the model dtype;
-    nothing for the other families."""
-
-    key, n = {"vlm": ("patch_embeds", cfg.n_patches),
-              "encdec": ("frames", cfg.n_frames)}.get(cfg.family, (None, 0))
-    if key is None:
-        return {}
-    g = torch.Generator(device=dev).manual_seed(seed)
-    return {key: torch.randn(batch, n, cfg.d_model, generator=g, device=dev).to(
-        model_layers.dtype_of(cfg))}
-
-
 def forward_len(cfg, prompt: int) -> int:
     """Tokens of a decode-against-forward check: the prompt, or one scan
     chunk where the scan kernel needs S divisible by min(scan_chunk, S) at
@@ -1466,7 +1474,7 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
         f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn on the card in "
         f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
-    extra = model_inputs(dev, cfg, SERVE_BATCH, SERVE_SEED + 2)
+    extra = frontend_inputs(cfg, SERVE_BATCH, SERVE_SEED + 2, dev)
     kw = dict(batch=SERVE_BATCH, prompt_len=prompt, gen=SERVE_GEN, seed=SERVE_SEED,
               device=dev, params=params, **extra)
 
@@ -1669,7 +1677,7 @@ def phase_f32_paths(dev: torch.device, arch: str) -> dict:
     plain = get_model(dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch"), dev)
     params = model.init_params(SERVE_SEED)
     n = forward_len(cfg, PROMPT_OF.get(arch, SERVE_PROMPT))
-    extra = model_inputs(dev, cfg, SERVE_BATCH, SERVE_SEED + 2)
+    extra = frontend_inputs(cfg, SERVE_BATCH, SERVE_SEED + 2, dev)
     with torch.inference_mode():
         step, full = decode_vs_forward(dev, cfg, params, n, extra)
         g = torch.Generator(device=dev).manual_seed(7)
@@ -1705,7 +1713,7 @@ def phase_card_vs_cpu(dev: torch.device, arch: str) -> float:
     params = model.init_params(SERVE_SEED)
     toks = torch.randint(0, cfg.vocab_size, (1, 256 + cfg.n_patches),
                          generator=torch.Generator().manual_seed(3))
-    extra = {k: v.cpu() for k, v in model_inputs(dev, cfg, 1, SERVE_SEED + 3).items()}
+    extra = {k: v.cpu() for k, v in frontend_inputs(cfg, 1, SERVE_SEED + 3, dev).items()}
     routing, routes = model_layers.moe_routing, []
 
     def record(*args, **kw):
@@ -1874,9 +1882,18 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
 
 
 # the training slice: (arch, layers kept (None: all), steps, save_async after
-# this step); batch 4 x 2048 from ShardedLoader(seed=0), AdamW at lr 3e-4
-# with linear_warmup_cosine(steps // 3, steps)
-TRAIN_RUNS = (("qwen3-1.7b", None, 6, 3), ("falcon-mamba-7b", 8, 3, 2))
+# this step, batch, gradient compression); batch x 2048 tokens (whisper-tiny:
+# its 448-token text context) from ShardedLoader(seed=0), AdamW at lr 3e-4
+# with linear_warmup_cosine(steps // 3, steps).  Weights, gradients and
+# AdamW's f32 moments take 12 bytes a parameter.  moonshot and internvl2 run
+# at depth 4: at 8 and 10 layers they fit (64.2 and 64.9 GiB), but their
+# 10 GB checkpoints took 100 s and 77 s of the script's time; zamba2-2.7b
+# runs whole at batch 1 (a batch-4 prefill alone takes 13.7 s) with
+# compression on, whose rows are its groups of six layers.
+TRAIN_RUNS = (("qwen3-1.7b", None, 6, 3, 4, False), ("falcon-mamba-7b", 8, 3, 2, 4, False),
+              ("moonshot-v1-16b-a3b", 4, 3, 2, 4, False), ("internvl2-26b", 4, 3, 2, 4, False),
+              ("whisper-tiny", None, 3, 2, 4, False), ("zamba2-2.7b", None, 2, 1, 1, True))
+TRAIN_SEQ_OF = {"whisper-tiny": 448}
 TRAIN_PROFILED_STEP = 1  # after the first step's warm-up, before any save
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2048, 3e-4
 # card against CPU: 3 steps at lr 3e-4.  The first step's loss and
@@ -1888,6 +1905,16 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2048, 3e-4
 # parameters, to rtol 1e-3.
 TRAIN_F32_TOL = {"atol": 1e-5, "rtol": 1e-4, "outlier_share": 1e-4,
                  "first_step_rtol": 1e-5, "later_steps_rtol": 1e-3}
+# card against CPU at full width, f32: (arch, layers kept, tokens of the one
+# sequence, steps).  The CPU half sets the time: at depth 2 and 3 steps
+# moonshot's took 77 s and internvl2's 83 s (their embeddings and heads
+# alone are 0.67 and 1.14 B parameters), and zamba2's six Mamba-2 layers
+# over 256 tokens 158 s, so the MoE and the VLM run at depth 1 (the VLM's
+# 288 tokens are its 256 patches and 32 text tokens), zamba2's one group of
+# six over 64 tokens, and the three of them 2 steps
+TRAIN_VS_CPU = (("qwen3-1.7b", 2, 256, 3), ("moonshot-v1-16b-a3b", 1, 256, 2),
+                ("internvl2-26b", 1, 288, 2), ("whisper-tiny", None, 256, 3),
+                ("zamba2-2.7b", 6, 64, 2))
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -1910,33 +1937,52 @@ def _same_params(label: str, want, got) -> None:
 
 
 def _reference_layout(cfg) -> dict:
-    """Manifest path -> (shape, dtype) of the reference's tree of ``cfg``."""
+    """Manifest path -> (shape, dtype) of the reference's tree of ``cfg``:
+    every stack (``layers``; the hybrid's ``mamba`` on (G, E) and its
+    ``shared`` block; the encoder-decoder's ``encoder`` and ``decoder``)
+    under its own name, the scan dynamics in f32."""
 
-    specs = get_model(cfg, "meta").param_specs()
-    dtype = {"A_log": "float32"}
-    out = {f"params/{k}": v for k, v in specs.items() if k != "layers"}
-    out.update({f"params/layers/{k}": v for k, v in specs["layers"].items()})
-    return {path: (tuple(shape), dtype.get(path.rsplit("/", 1)[-1], cfg.dtype))
-            for path, shape in out.items()}
+    f32 = {"ssm": ("A_log",), "hybrid": ("A_log", "dt_bias")}.get(cfg.family, ())
+    return {path: (tuple(shape), "float32" if path.rsplit("/", 1)[-1] in f32 else cfg.dtype)
+            for path, shape in _leaves(get_model(cfg, "meta").param_specs(), "params/")}
 
 
-def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: int) -> dict:
-    """``make_train_step`` at full width (depth cut to ``layers``), bf16,
-    ``remat="block"``, torch impls: ``steps`` steps, ``save_async`` after
-    step ``async_after`` and ``save_blocking`` at the end through
-    ``Checkpointer`` -> ``TieredCheckpointStore``; then the restored
-    parameters are held bit-equal to the live ones, the manifest to the
-    reference's layout, the async checkpoint to a device copy taken at its
-    step, and the restored parameters' kernel prefill to the live ones' bit
-    for bit and to the torch prefill within the serve tolerance."""
+def train_config(arch: str, layers) -> object:
+    """``arch``'s published config on the torch paths, its depth cut to
+    ``layers`` where given."""
 
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    cfg = dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch")
+    return dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch")
+
+
+def train_batch(dev, cfg, loader: ShardedLoader, step: int, batch: int) -> dict:
+    """The loader's tokens and labels of ``step``, and the VLM's or the
+    encoder-decoder's seeded frontend inputs."""
+
+    out = {k: torch.from_numpy(v).to(dev) for k, v in loader.get(step).items()}
+    return dict(out, **frontend_inputs(cfg, batch, SERVE_SEED + 10 + step, dev))
+
+
+def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: int,
+                batch_n: int, compress: bool) -> dict:
+    """``make_train_step`` at full width (depth cut to ``layers``), bf16,
+    ``remat="block"``, torch impls, batch ``batch_n``, gradient compression
+    if ``compress``: ``steps`` steps, ``save_async`` after step
+    ``async_after`` and ``save_blocking`` at the end through
+    ``Checkpointer`` -> ``TieredCheckpointStore``; then the restored
+    parameters are held bit-equal to the live ones, the manifest to the
+    reference's layout, the async checkpoint to a copy taken at its step,
+    and the restored parameters' kernel prefill (``batch_n`` prompts) to the
+    live ones' bit for bit and to the torch prefill within the serve
+    tolerance (argmax agreement for zamba2's 54 layers, as in serve)."""
+
+    cfg = train_config(arch, layers)
     if cfg.remat != "block" or cfg.dtype != "bfloat16":
         fail(f"{arch}: the training slice runs bf16 with remat='block'")
-    name = "flash_attention" if cfg.family == "dense" else "ssm_scan"
+    seq = TRAIN_SEQ_OF.get(arch, TRAIN_SEQ)
+    name, per_prefill = prefill_launches(cfg)
     model = get_model(cfg, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1947,38 +1993,42 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
     save_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     opt_state = init_state(dict(params.named_parameters()))
     step_fn = make_train_step(model, AdamWConfig(
-        lr=TRAIN_LR, schedule=linear_warmup_cosine(steps // 3, steps)))
-    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                                      global_batch=TRAIN_BATCH, seed=0), host_id=0)
+        lr=TRAIN_LR, schedule=linear_warmup_cosine(steps // 3, steps)),
+        CompressionConfig(enabled=compress))
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=batch_n, seed=0), host_id=0)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         free = shutil.disk_usage(root).free
         log(f"[train] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
             f"{n_params / 1e9:.3f} B parameters in bf16 ({save_bytes / 1e9:.2f} GB a save); "
+            f"batch {batch_n} x {seq}, compression {'on' if compress else 'off'}; "
             f"{free / 1e9:.1f} GB free under {root}")
         if free < 3 * save_bytes:
             fail(f"{arch}: {free / 1e9:.1f} GB free, a save needs {save_bytes / 1e9:.2f} GB")
         ck = Checkpointer(TieredCheckpointStore(root))
-        records, snapshot_s, at_async = [], {}, None
+        records, snapshot_s, at_async, profile = [], {}, None, None
         for step in range(steps):
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in loader.get(step).items()}
+            batch = train_batch(dev, cfg, loader, step, batch_n)
             torch.cuda.synchronize()
             in_flight = ck.saves_started > ck.saves_completed
+            profiled = step == TRAIN_PROFILED_STEP and steps > 2
             prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-                    if step == TRAIN_PROFILED_STEP else contextlib.nullcontext())
+                    if profiled else contextlib.nullcontext())
             with prof:
                 t0 = time.perf_counter()
                 params, opt_state, m = step_fn(params, opt_state, batch)
                 loss, gnorm, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
-            if step == TRAIN_PROFILED_STEP:
+            if profiled:
                 ops = device_ops(prof)
                 profile = {"step": step, "wall_ms": ms,
                            "busy_ms": sum(r[1] for r in ops), "device_ops": sum(r[2] for r in ops),
                            "top_device_ops": ops[:10]}
             records.append({"step": step, "ms": ms, "loss": loss, "grad_norm": gnorm, "lr": lr,
-                            "save_in_flight": in_flight})
+                            "save_in_flight": in_flight,
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
             log(f"[train] {arch}: step {step} loss {loss:.4f} grad_norm {gnorm:.4f} "
                 f"lr {lr:.3g} {ms:.1f} ms{' (a save in flight)' if in_flight else ''}")
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
@@ -1986,7 +2036,9 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
             if step + 1 == async_after:
                 t0 = time.perf_counter()
                 tree = tree_from_params(params)
-                at_async = {k: (v.clone() if k != "layers" else dict(v)) for k, v in tree.items()}
+                # a host copy of the parameters at this step, to hold the
+                # async checkpoint against
+                at_async = {path: t.to("cpu", copy=True) for path, t in _leaves(tree)}
                 ck.save_async(step + 1, {"params": tree})
                 del tree
                 snapshot_s["async"] = time.perf_counter() - t0
@@ -2015,11 +2067,11 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
         if step_back != steps:
             fail(f"{arch}: restored step {step_back}, expected {steps}")
         _same_params(f"{arch} restored vs live", params, restored)
-        early = store.load(async_after)["params"]
-        for k, want in _leaves(at_async):
-            got = dict(_leaves(early))[k]
+        early = dict(_leaves(store.load(async_after)["params"]))
+        for k, want in at_async.items():
+            got = early[k]
             got = got if isinstance(got, torch.Tensor) else torch.from_numpy(np.array(got))
-            if not torch.equal(_bits(got.to(dev)), _bits(want)):
+            if not torch.equal(_bits(got.cpu()), _bits(want)):
                 fail(f"{arch}: the async checkpoint of step {async_after} differs from "
                      f"the parameters at that step ({k})")
         del tree, at_async, early
@@ -2028,24 +2080,31 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
 
     # the restored checkpoint served: kernel prefill of the restored and the
     # live parameters bit-equal, the torch prefill within the serve tolerance
+    # (cut-depth runs and the archs gated in serve) or agreeing on the argmax
     kernel_model = get_model(dataclasses.replace(cfg, attention_impl="kernel",
                                                  ssm_impl="kernel"), dev)
     g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
-                            device=dev)
+    prompt = PROMPT_OF.get(arch, SERVE_PROMPT)
+    inputs = dict(frontend_inputs(cfg, batch_n, SERVE_SEED + 2, dev), tokens=torch.randint(
+        0, cfg.vocab_size, (batch_n, prompt), generator=g, device=dev))
     with torch.inference_mode():
-        live, _ = kernel_model.prefill(params, {"tokens": prompts})
-        back, _ = kernel_model.prefill(restored, {"tokens": prompts})
-        plain, _ = model.prefill(restored, {"tokens": prompts})
+        live, _ = kernel_model.prefill(params, inputs)
+        back, _ = kernel_model.prefill(restored, inputs)
+        plain, _ = model.prefill(restored, inputs)
     launches = {"flash_attention": fa_ops.launches["flash_attention"],
                 "ssm_scan": ssm_ops.launches["ssm_scan"]}
-    if launches[name] != 2 * cfg.n_layers:
+    if launches[name] != 2 * per_prefill:
         fail(f"{arch}: {name} launched {launches[name]} times serving the restored "
-             f"checkpoint, expected {2 * cfg.n_layers} (two kernel prefills)")
+             f"checkpoint, expected {2 * per_prefill} (two kernel prefills)")
     if not torch.equal(live, back):
         fail(f"{arch}: the restored parameters' kernel prefill differs from the live ones'")
-    serve_err = _held(f"{arch} restored: torch vs kernel prefill", plain[:, -1], back[:, -1],
-                      BF16_TOL, BF16_TOL)
+    if arch in BF16_GATED or cfg.n_layers < get_config(arch).n_layers:
+        serve_err = _held(f"{arch} restored: torch vs kernel prefill", plain[:, -1],
+                          back[:, -1], BF16_TOL, BF16_TOL)
+    else:
+        serve_err = float((plain[:, -1].float() - back[:, -1].float()).abs().max())
+        if _agreement(plain[:, -1], back[:, -1]) < 0.5:
+            fail(f"{arch} restored: torch and kernel prefill argmax agree on under half the rows")
     # steady: past the first step, no save in flight, and not under the
     # profiler where another step is
     steady = [r["ms"] for r in records[1:] if not r["save_in_flight"]]
@@ -2053,18 +2112,19 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
         steady = [r["ms"] for r in records[1:]
                   if not r["save_in_flight"] and r["step"] != TRAIN_PROFILED_STEP]
     during = [r["ms"] for r in records if r["save_in_flight"]]
+    tokens = batch_n * seq
     out = {
         "model": arch, "layers": cfg.n_layers, "parameters": n_params, "steps": steps,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "records": records,
+        "batch": batch_n, "seq": seq, "compression": compress, "records": records,
         "first_step_ms": records[0]["ms"],
         "step_ms": sum(steady) / len(steady) if steady else None,
         "step_ms_save_in_flight": sum(during) / len(during) if during else None,
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (sum(steady) / len(steady) / 1e3)
-        if steady else None,
+        "tokens_per_s": tokens / (sum(steady) / len(steady) / 1e3) if steady else None,
         "peak_gib": peak_train, "save_bytes": save_bytes,
         "save_seconds": ck.save_seconds, "snapshot_seconds": snapshot_s,
         "restore_seconds": restore_s, "bb_stats": bb, "launches": launches,
         "profiled_step": profile,
+        "restored_prompts": [batch_n, prompt],
         "restored_torch_vs_kernel_max_abs_err": serve_err,
     }
     log(f"[train] {json.dumps(out)}")
@@ -2073,58 +2133,301 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
     return out
 
 
-def phase_train_card_vs_cpu(dev: torch.device) -> dict:
-    """qwen3-1.7b at full width, depth 2, f32 (TF32 off), batch 1 x 256:
-    three train steps on the card and on the CPU from the same weights."""
+def phase_train_card_vs_cpu(dev: torch.device, arch: str, layers, seq: int,
+                            steps: int) -> dict:
+    """``arch`` at full width, depth ``layers`` (None: whole), f32 (TF32
+    off), batch 1 x ``seq``: ``steps`` train steps on the card and on the
+    CPU from the same weights (drawn on the card) and batches, the two
+    results compared on the card.  For the MoE, the share of (token,
+    choice) routes (expert, kept) that differ between the two runs' calls is
+    reported, as in ``phase_card_vs_cpu``."""
 
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32",
-                              attention_impl="torch", ssm_impl="torch")
-    steps, opt = 3, AdamWConfig(lr=TRAIN_LR, schedule=linear_warmup_cosine(1, 3))
-    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+    cfg = dataclasses.replace(train_config(arch, layers), dtype="float32")
+    opt = AdamWConfig(lr=TRAIN_LR, schedule=linear_warmup_cosine(1, 3))
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                       global_batch=1, seed=0), host_id=0)
-    cpu_params = get_model(cfg, "cpu").init_params(SERVE_SEED)
+    cpu_params = get_model(cfg, dev).init_params(SERVE_SEED).to("cpu")
+    batches = [train_batch("cpu", cfg, loader, step, 1) for step in range(steps)]
+    routing, routes = model_layers.moe_routing, {}
+
+    def record(*args, **kw):
+        out = routing(*args, **kw)
+        _, idx, slot, cap = out
+        routes[where].append((idx.cpu(), (slot < cap).cpu()))
+        return out
+
+    model_layers.moe_routing = record
     runs = {}
-    for where in ("cpu", dev):
-        t0 = time.perf_counter()
-        params = copy.deepcopy(cpu_params).to(where)
-        state = init_state(dict(params.named_parameters()))
-        step_fn = make_train_step(get_model(cfg, where), opt)
-        metrics = []
-        for step in range(steps):
-            batch = {k: torch.from_numpy(v).to(where) for k, v in loader.get(step).items()}
-            params, state, m = step_fn(params, state, batch)
-            metrics.append((float(m["loss"]), float(m["grad_norm"])))
-        runs[str(where)] = (params, metrics, time.perf_counter() - t0)
-        del state
+    try:
+        for where in ("cpu", str(dev)):
+            routes[where] = []
+            t0 = time.perf_counter()
+            params = copy.deepcopy(cpu_params).to(where)
+            state = init_state(dict(params.named_parameters()))
+            step_fn = make_train_step(get_model(cfg, where), opt)
+            metrics = []
+            for b in batches:
+                params, state, m = step_fn(params, state, {k: v.to(where) for k, v in b.items()})
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[where] = (params, metrics, time.perf_counter() - t0)
+            del state
+    finally:
+        model_layers.moe_routing = routing
     (p_cpu, m_cpu, t_cpu), (p_card, m_card, t_card) = runs["cpu"], runs[str(dev)]
     metric_err = [max(abs(a - b) / abs(a) for a, b in zip(ra, rb))
                   for ra, rb in zip(m_cpu, m_card)]
     for step, err in enumerate(metric_err):
         tol = TRAIN_F32_TOL["first_step_rtol" if step == 0 else "later_steps_rtol"]
         if err > tol:
-            fail(f"train card vs cpu: loss/grad_norm of step {step} differ by {err:.3g} "
-                 f"relative (rtol {tol})")
+            fail(f"train card vs cpu ({arch}): loss/grad_norm of step {step} differ by "
+                 f"{err:.3g} relative (rtol {tol})")
     worst, outliers, total = 0.0, 0, 0
     bound = 2 * TRAIN_LR * steps
     for (name, a), b in zip(p_cpu.named_parameters(), p_card.parameters()):
-        a, b = a.detach(), b.detach().cpu()
+        a, b = a.detach().to(dev), b.detach()
         diff = (a - b).abs()
         worst = max(worst, float(diff.max()))
         outliers += int((diff > TRAIN_F32_TOL["atol"] + TRAIN_F32_TOL["rtol"] * a.abs()).sum())
         total += a.numel()
         if float(diff.max()) > bound:
-            fail(f"train card vs cpu: {name} moved {float(diff.max()):.3g} apart "
+            fail(f"train card vs cpu ({arch}): {name} moved {float(diff.max()):.3g} apart "
                  f"(more than 2 lr a step)")
     if outliers > TRAIN_F32_TOL["outlier_share"] * total:
-        fail(f"train card vs cpu: {outliers} of {total} parameters outside atol "
+        fail(f"train card vs cpu ({arch}): {outliers} of {total} parameters outside atol "
              f"{TRAIN_F32_TOL['atol']} / rtol {TRAIN_F32_TOL['rtol']}")
-    out = {"loss_grad_norm_rel_err_by_step": metric_err, "param_max_abs_err": worst,
+    out = {"model": arch, "layers": cfg.n_layers, "seq": seq, "steps": steps,
+           "loss_grad_norm_rel_err_by_step": metric_err, "param_max_abs_err": worst,
            "params_outside_tol": outliers, "params": total, "cpu_s": t_cpu, "card_s": t_card,
-           "loss": [m[0] for m in m_card]}
-    log(f"[train-card-vs-cpu] qwen3-1.7b full width, 2 layers, f32, 1 x 256, 3 steps: "
-        f"{json.dumps(out)}")
+           "loss": [m[0] for m in m_card], "moe_routes": None}
+    if routes["cpu"]:
+        a_all, b_all = routes["cpu"], routes[str(dev)]
+        if len(a_all) != len(b_all):
+            fail(f"train card vs cpu ({arch}): {len(a_all)} routing calls on the CPU, "
+                 f"{len(b_all)} on the card")
+        differ = sum(int(((a[0] != b[0]) | (a[1] != b[1])).sum()) for a, b in zip(a_all, b_all))
+        count = sum(a[0].numel() for a in a_all)
+        out["moe_routes"] = {"differ": differ, "total": count, "share": differ / count,
+                             "calls": len(a_all)}
+    log(f"[train-card-vs-cpu] {arch} full width, {cfg.n_layers} layers, f32, 1 x {seq}, "
+        f"{steps} steps: {json.dumps(out)}")
     del p_cpu, p_card, cpu_params
     torch.cuda.empty_cache()
+    return out
+
+
+# the perf levers: qwen3-1.7b served with each serving lever at its published
+# config; grok-1-314b stored in fp8 (its 64 layers are 314 GB even so: one
+# layer of 4.92 B parameters is 4.9 GB), gated at depth 4 and served at 13
+# layers; falcon-mamba-7b trained with mamba_fused_proj
+LEVER_ARCH = "qwen3-1.7b"
+FP8 = "float8_e4m3fn"
+GROK_FP8 = {"param_dtype": FP8, "matmul_weight_dtype": "bfloat16"}
+GROK_FP8_GATE_DEPTH = 4
+# 14 layers (69 GB of fp8 weights) is the most that fits a fresh process
+# (chip_memory_probe.py); after this script's earlier phases the allocator's
+# cache leaves room for one layer less, so the run serves 13 and fails if they
+# do not fit
+GROK_FP8_SERVE_DEPTH = 13
+FUSED_DEPTH = 8
+# the leaves that models/layers.py::wcast casts before their products
+WCAST_LEAVES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "router", "lm_head")
+FUSED_LOSS_TOL = 2e-3  # tests/test_perf_levers.py's bound for mamba_fused_proj
+
+
+def _fp8_rounded(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float8_e4m3fn).to(t.dtype)
+
+
+def serve_twice(cfg, params, dev) -> dict:
+    """``serve`` at the serve slice's shape, twice; the second call's
+    result (its times warm), the two calls' tokens gated equal."""
+
+    kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=SERVE_SEED,
+              device=dev, params=params)
+    first = serve(cfg, **kw)
+    warm = serve(cfg, **kw)
+    if not torch.equal(first["tokens"], warm["tokens"]):
+        fail(f"{cfg.name}: a second serve call generated other tokens")
+    return warm
+
+
+def _serve_times(res: dict) -> dict:
+    return {"prefill_ms": res["prefill_s"] * 1e3,
+            "decode_ms_per_token": res["decode_s"] * 1e3 / res["decode_steps"]}
+
+
+def phase_lever_serve(dev: torch.device) -> dict:
+    """qwen3-1.7b at its published config on one set of weights, served
+    (``serve``, batch 4 x 2048, 32 tokens) unlevered, with
+    ``embed_onehot`` and with ``matmul_weight_dtype="float8_e4m3fn"``.
+    Gates: the one-hot run's prefill logits and tokens bit-equal to the
+    gather's; the fp8 run's hidden states and last logits bit-equal to the
+    unlevered model's on weights rounded through fp8 beforehand (the tied
+    head rounded for the logits alone, since the embedding gather takes the
+    table uncast); the fp8 model's decode against forward at the bf16
+    gate."""
+
+    cfg = get_config(LEVER_ARCH)
+    model = get_model(cfg, dev)
+    torch.cuda.empty_cache()
+    params = model.init_params(SERVE_SEED)
+    fa_ops.reset_launches()
+    runs, peaks = {}, {}
+    for label, over in (("plain", {}), ("embed_onehot", {"embed_onehot": True}),
+                        ("fp8_weights", {"matmul_weight_dtype": FP8})):
+        torch.cuda.reset_peak_memory_stats()
+        runs[label] = serve_twice(dataclasses.replace(cfg, **over), params, dev)
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+    launches = fa_ops.launches["flash_attention"]
+    if launches != 6 * cfg.n_layers:
+        fail(f"lever serve: flash_attention launched {launches} times in six prefills of "
+             f"{cfg.n_layers} layers")
+    if not (torch.equal(runs["embed_onehot"]["prefill_logits"], runs["plain"]["prefill_logits"])
+            and torch.equal(runs["embed_onehot"]["tokens"], runs["plain"]["tokens"])):
+        fail("embed_onehot: the prefill logits or tokens differ from the gather's")
+
+    fp8_cfg = dataclasses.replace(cfg, matmul_weight_dtype=FP8)
+    rounded = copy.deepcopy(params)
+    with torch.no_grad():
+        for name, t in rounded.named_parameters():
+            if name.rsplit(".", 1)[-1] in WCAST_LEAVES:
+                t.copy_(_fp8_rounded(t))
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                            device=dev)
+    head = {"tok_emb": _fp8_rounded(params.tok_emb)} if cfg.tie_embeddings else {
+        "lm_head": rounded.lm_head}
+    with torch.inference_mode():
+        h_fp8, _ = get_model(fp8_cfg, dev).forward(params, prompts)
+        h_round, _ = model.forward(rounded, prompts)
+        if not torch.equal(h_fp8, h_round):
+            fail("matmul_weight_dtype fp8: hidden states differ from the unlevered model on "
+                 "fp8-rounded weights")
+        l_fp8 = model_layers.lm_logits(fp8_cfg, params, h_fp8[:, -1:])
+        l_round = model_layers.lm_logits(cfg, types.SimpleNamespace(**head), h_round[:, -1:])
+        if not torch.equal(l_fp8, l_round):
+            fail("matmul_weight_dtype fp8: logits differ from the unlevered model's on "
+                 "fp8-rounded weights")
+        del h_fp8, h_round, rounded
+        step, full = decode_vs_forward(dev, fp8_cfg, params, SERVE_PROMPT, {})
+        dec_err = _held("fp8 weights decode vs forward", step, full, BF16_TOL, BF16_TOL)
+        moved = float((runs["fp8_weights"]["prefill_logits"]
+                       - runs["plain"]["prefill_logits"]).abs().max())
+    out = {"model": LEVER_ARCH, "layers": cfg.n_layers, "launches": launches,
+           "runs": {label: dict(_serve_times(res), peak_gib=peaks[label])
+                    for label, res in runs.items()},
+           "fp8_decode_vs_forward_max_abs_err": dec_err,
+           "fp8_vs_plain_prefill_logits_max_abs_diff": moved}
+    log(f"[levers] {json.dumps(out)}")
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grok_fp8_serve(dev: torch.device, depth: int) -> dict:
+    """grok-1-314b at full width and ``depth`` layers stored in fp8, served
+    twice: finite logits, tokens below the padded vocabulary, one attention
+    launch a layer a prefill."""
+
+    cfg = dataclasses.replace(get_config("grok-1-314b"), n_layers=depth, **GROK_FP8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_launches()
+    params = get_model(cfg, dev).init_params(SERVE_SEED)
+    res = serve_twice(cfg, params, dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = fa_ops.launches["flash_attention"]
+    if launches != 2 * depth:
+        fail(f"grok fp8 at {depth} layers: flash_attention launched {launches} times in two "
+             "prefills")
+    toks = res["tokens"]
+    if not (bool(torch.isfinite(res["prefill_logits"]).all())
+            and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all())):
+        fail(f"grok fp8 at {depth} layers: non-finite logits or tokens out of the vocabulary")
+    del params
+    return dict(_serve_times(res), layers=depth, peak_gib=peak, launches=launches)
+
+
+def phase_grok_fp8(dev: torch.device) -> dict:
+    """grok-1-314b with ``param_dtype="float8_e4m3fn"``,
+    ``matmul_weight_dtype="bfloat16"``: at depth 4 every leaf fp8 and the
+    prefill logits bit-equal to the bf16 model on the same (fp8) values;
+    then served at ``GROK_FP8_SERVE_DEPTH`` layers."""
+
+    cfg = dataclasses.replace(get_config("grok-1-314b"), n_layers=GROK_FP8_GATE_DEPTH,
+                              **GROK_FP8)
+    model = get_model(cfg, dev)
+    torch.cuda.empty_cache()
+    params = model.init_params(SERVE_SEED)
+    if {t.dtype for t in params.parameters()} != {torch.float8_e4m3fn}:
+        fail("grok fp8: a leaf is not stored in float8_e4m3fn")
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                            device=dev)
+    bf16_cfg = dataclasses.replace(cfg, param_dtype=None, matmul_weight_dtype=None)
+    with torch.inference_mode():
+        l_fp8, _ = model.prefill(params, {"tokens": prompts})
+    with torch.no_grad():
+        params.to(torch.bfloat16)  # leaf by leaf: the fp8 values in bf16
+    with torch.inference_mode():
+        l_bf16, _ = get_model(bf16_cfg, dev).prefill(params, {"tokens": prompts})
+    if not torch.equal(l_fp8, l_bf16):
+        fail("grok fp8: prefill logits differ from the bf16 model on the fp8 values")
+    del params, model, l_fp8, l_bf16
+    torch.cuda.empty_cache()
+
+    served = _grok_fp8_serve(dev, GROK_FP8_SERVE_DEPTH)
+    out = {"gate_depth": GROK_FP8_GATE_DEPTH, "gate": "prefill logits bit-equal to bf16",
+           "served": served, "launches": served["launches"]}
+    log(f"[levers] grok-1-314b fp8: {json.dumps(out)}")
+    return out
+
+
+def _train_one_step(dev: torch.device, cfg, batch_n: int = TRAIN_BATCH,
+                    compress: bool = False) -> dict:
+    """One train step of ``cfg`` from seed-0 weights on the loader's first
+    batch (``batch_n`` x 2048): its loss, grad_norm, time and peak."""
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                      global_batch=batch_n, seed=0), host_id=0)
+    model = get_model(cfg, dev)
+    params = model.init_params(SERVE_SEED)
+    state = init_state(dict(params.named_parameters()))
+    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR), CompressionConfig(enabled=compress))
+    batch = train_batch(dev, cfg, loader, 0, batch_n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step_fn(params, state, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        fail(f"{cfg.name} at {cfg.n_layers} layers: non-finite loss or grad_norm")
+    del params, state
+    return {"layers": cfg.n_layers, "loss": loss, "grad_norm": gnorm, "ms": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_fused_proj(dev: torch.device, plain: dict) -> dict:
+    """falcon-mamba-7b at full width and depth 8, one train step (bf16,
+    ``remat="block"``, 4 x 2048) with ``mamba_fused_proj`` from the weights
+    and batch of ``phase_train``'s first step (``plain``: that step's
+    record): the losses within 2e-3, and each run's peak."""
+
+    cfg = train_config("falcon-mamba-7b", FUSED_DEPTH)
+    fused = _train_one_step(dev, dataclasses.replace(cfg, mamba_fused_proj=True))
+    if abs(fused["loss"] - plain["loss"]) > FUSED_LOSS_TOL:
+        fail(f"mamba_fused_proj: first-step loss {fused['loss']} against {plain['loss']} "
+             f"unfused (bound {FUSED_LOSS_TOL})")
+    out = {"depth": FUSED_DEPTH, "plain": plain, "fused": fused,
+           "loss_diff": abs(fused["loss"] - plain["loss"])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[fused] falcon-mamba-7b: {json.dumps(out)}")
     return out
 
 
@@ -2218,12 +2521,30 @@ def main() -> int:
         phase_card_vs_cpu(dev, arch)
         log(f"[f32] {arch}: the f32 and card-vs-cpu phases took "
             f"{time.perf_counter() - t_arch:.1f} s")
+    t_levers = time.perf_counter()
+    levers = phase_lever_serve(dev)
+    grok_fp8 = phase_grok_fp8(dev)
+    for count in (levers["launches"], grok_fp8["launches"]):  # hd 128
+        model_launches["flash_attention"] = model_launches.get("flash_attention", 0) + count
+    log(f"[levers] the serving lever phases took {time.perf_counter() - t_levers:.1f} s")
     t_train = time.perf_counter()
+    first_steps = {}
     for run in TRAIN_RUNS:
+        t_run = time.perf_counter()
         res = phase_train(dev, *run)
+        log(f"[train] {run[0]}: the train phase took {time.perf_counter() - t_run:.1f} s")
+        first_steps[run[0]] = dict(res["records"][0], layers=res["layers"])
         for name, count in res["launches"].items():
+            if name == "flash_attention":
+                name = fa_instance(get_config(run[0]).head_dim_)
             model_launches[name] = model_launches.get(name, 0) + count
-    phase_train_card_vs_cpu(dev)
+    t_run = time.perf_counter()
+    phase_fused_proj(dev, first_steps["falcon-mamba-7b"])
+    log(f"[fused] the mamba_fused_proj phase took {time.perf_counter() - t_run:.1f} s")
+    for run in TRAIN_VS_CPU:
+        t_run = time.perf_counter()
+        phase_train_card_vs_cpu(dev, *run)
+        log(f"[train-card-vs-cpu] {run[0]}: took {time.perf_counter() - t_run:.1f} s")
     phase_train_cli()
     log(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s")
     kernels += model_kernel_timings(dev, model_worst, model_launches, clock_mhz * 1e6)

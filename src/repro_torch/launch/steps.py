@@ -16,19 +16,19 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig | None = None,
     (identity when disabled) and one AdamW step, which updates ``params``
     and ``opt_state`` in place.  ``opt_state`` is
     ``init_state(dict(params.named_parameters()))``; ``batch`` holds
-    ``tokens`` and ``labels`` tensors on the model's device; ``metrics``
-    holds ``loss``, ``grad_norm`` and ``lr``.
+    ``tokens`` and ``labels`` tensors on the model's device (and the VLM's
+    ``patch_embeds``, the encoder-decoder's ``frames``); ``metrics`` holds
+    ``loss``, ``grad_norm`` and ``lr``.
 
     Raises ``ValueError`` for ``attention_impl`` or ``ssm_impl`` ``"kernel"``:
-    the kernels have no backward pass (nor have the reference's).  Raises
-    ``NotImplementedError`` for compression of the hybrid family, whose
-    reference rows are groups of layers (not ported)."""
+    the kernels have no backward pass (nor have the reference's)."""
 
     opt_cfg = opt_cfg or AdamWConfig()
     comp_cfg = comp_cfg or CompressionConfig()
     cfg = model.cfg
-    if comp_cfg.enabled and cfg.family == "hybrid":
-        raise NotImplementedError("gradient compression of the hybrid family is not ported")
+    # the hybrid's reference leaves are stacked on (G, E), so a compression
+    # row there is a group of E layers; elsewhere (stacked on L) one layer
+    every = cfg.shared_attn_every if cfg.family == "hybrid" else 1
     for field in ("attention_impl", "ssm_impl"):
         if getattr(cfg, field) == "kernel":
             raise ValueError(f"{field}='kernel' has no backward pass; train with "
@@ -60,28 +60,40 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig | None = None,
         params.requires_grad_()
         loss, grads = grads_of(params, batch)
         tree = dict(params.named_parameters())
-        grads = _compress_as_reference(dict(zip(tree, grads)), comp_cfg)
+        grads = _compress_as_reference(dict(zip(tree, grads)), comp_cfg, every)
         _, opt_state, metrics = apply_updates(opt_cfg, tree, grads, opt_state)
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
 
 
-def _compress_as_reference(grads: dict, cfg: CompressionConfig) -> dict:
+def _compress_as_reference(grads: dict, cfg: CompressionConfig, every: int = 1) -> dict:
     """Cross-pod gradient compression (identity when disabled), with the
     error dropped each step as the reference's step drops it.  Compression
     scales each row (first axis) of a leaf, and the reference stacks a
-    per-layer leaf on L, so there a layer's whole leaf is one row: each
-    per-layer leaf (``layers.<i>.<name>``, the encoder-decoder's
-    ``encoder.<i>.<name>`` and ``decoder.<i>.<name>``) goes in with a leading
-    axis of 1."""
+    per-layer leaf on L (the hybrid's on (G, E), its flat layer i being
+    ``[i // E, i % E]``), so there a row is a leaf name's ``every``
+    consecutive layers (E for the hybrid, else 1): the per-layer leaves
+    (``layers.<i>.<name>``, the encoder-decoder's ``encoder.<i>.<name>``
+    and ``decoder.<i>.<name>``) go in a group at a time, stacked to
+    (1, every, ...), and come out split back; any other leaf (embedding,
+    head, the hybrid's ``shared`` block) keeps its own first axis.  One
+    group at a time, so compression's f32 transients are a group's."""
 
-    def per_layer(k: str) -> bool:
-        return k.startswith(("layers.", "encoder.", "decoder."))
-
-    out, _ = compress_tree({k: g[None] if per_layer(k) else g for k, g in grads.items()},
-                           None, cfg)
-    return {k: out[k][0] if per_layer(k) else out[k] for k in grads}
+    if not cfg.enabled:
+        return grads
+    rows: dict[tuple, list[str]] = {}
+    out = {}
+    for k, g in grads.items():
+        stack, i, name = (k.split(".", 2) + ["", ""])[:3]
+        if stack in ("layers", "encoder", "decoder"):
+            rows.setdefault((stack, int(i) // every, name), []).append(k)
+        else:
+            out[k] = compress_tree({k: g}, None, cfg)[0][k]
+    for ks in rows.values():
+        row = torch.stack([grads[k] for k in ks])[None]
+        out.update(zip(ks, compress_tree({"row": row}, None, cfg)[0]["row"][0]))
+    return {k: out[k] for k in grads}
 
 
 def make_prefill_step(model: ModelApi):

@@ -1,9 +1,9 @@
 """End-to-end training launcher.
 
-Composes the port's pieces: a model whose batch is tokens alone (the
-dense, MoE, Mamba-1 and hybrid families; ``--arch``, or a size
-``--preset``; the loader makes no patch embeddings or frames, as the
-reference's makes none), sharded synthetic data, AdamW,
+Composes the port's pieces: a model of any family (``--arch``, or a size
+``--preset``), sharded synthetic data (the VLM's patch embeddings and the
+encoder-decoder's frames drawn from ``--seed`` and the step, as the
+modality frontends are stubs), AdamW,
 optional gradient compression, heartbeat bookkeeping, and SSDUP+
 burst-buffered async checkpointing with restart (``--resume`` picks up the
 newest committed manifest).  Runs on the CUDA card unless ``--device cpu``
@@ -38,7 +38,7 @@ from ..configs.base import ModelConfig
 from ..data import DataConfig, ShardedLoader
 from ..device import resolve_device
 from ..distributed.fault_tolerance import HeartbeatTable
-from ..models import get_model
+from ..models import frontend_inputs, get_model
 from ..models.convert import params_from_jax, tree_from_params
 from ..optim import AdamWConfig, CompressionConfig, init_state, linear_warmup_cosine
 from .steps import make_train_step
@@ -123,6 +123,7 @@ def main(argv: list[str] | None = None) -> None:
     t_start = time.time()
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in data.get(step).items()}
+        batch.update(frontend_inputs(cfg, args.batch, args.seed * 1_000_003 + step, dev))
         t0 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])  # waits for the step

@@ -1,7 +1,7 @@
 """The port's model stack: the dense, MoE, VLM, encoder-decoder, Mamba-1
 and hybrid (Mamba-2 + shared attention) families, served on one card
-(prefill + greedy decode)."""
+(prefill + greedy decode) and trained."""
 
-from .registry import ModelApi, get_model
+from .registry import ModelApi, frontend_inputs, get_model
 
-__all__ = ["ModelApi", "get_model"]
+__all__ = ["ModelApi", "frontend_inputs", "get_model"]

@@ -32,14 +32,19 @@ def config_from_jax(cfg) -> ModelConfig:
     return ModelConfig(**fields)
 
 
+# ml_dtypes' dtypes, which torch.from_numpy refuses: carried as their bits
+_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+         "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def _tensor(arr) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         return arr.detach()
-    arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes: carry the bits
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy())
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if arr.dtype.name in _BITS:
+        bits, dtype = _BITS[arr.dtype.name]
+        return torch.from_numpy(arr.view(bits).copy()).view(dtype)
+    return torch.from_numpy(arr.copy())
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict, device=None

@@ -16,6 +16,13 @@ dispatch and the Mamba-2 scan have no kernel in either package: they run
 the same torch code under both.  On one card there is nothing to shard, so
 the reference's sharding annotations have no counterpart here.
 
+The reference's perf levers are here too: ``matmul_weight_dtype`` casts a
+weight right before its matmul (:func:`wcast`, at the reference's sites
+only), ``param_dtype`` stores the dense, MoE and VLM trunk's parameters in
+another dtype (:func:`param_dtype_of`), ``embed_onehot`` embeds by a
+one-hot product, and ``mamba_fused_proj`` runs a Mamba-1 layer's x_proj and
+dt_proj inside each recomputed scan chunk (:func:`_ssm_scan_fused_m1`).
+
 Where the reference wraps a body in ``jax.checkpoint`` (a block, a query
 chunk of long attention, a chunk of the scan), the port calls it through
 :func:`checkpointed`, which recomputes it in the backward pass when
@@ -42,12 +49,14 @@ ATTN_Q_CHUNK = 512
 NEG_INF = float(np.finfo(np.float32).min)
 IMPLS = ("kernel", "torch")
 FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
-# perf levers of the reference that wait for a later slice of the port
-UNPORTED_LEVERS = ("matmul_weight_dtype", "embed_onehot", "mamba_fused_proj", "param_dtype")
+# the families whose parameters the reference stores in cfg.param_dtype
+# (models/transformer.py); its ssm, hybrid and encdec init ignores it
+PARAM_DTYPE_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not serve, instead of ignoring it."""
+    """Raise for a config the port does not run, instead of ignoring a field
+    of it."""
 
     if cfg.family not in FAMILIES:
         raise ValueError(f"family must be one of {FAMILIES}, got {cfg.family!r}")
@@ -55,9 +64,10 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError("the ssm family is ported with Mamba-1 blocks only")
     if cfg.family == "hybrid" and cfg.mamba_version != 2:
         raise NotImplementedError("the hybrid family is ported with Mamba-2 blocks only")
-    for lever in UNPORTED_LEVERS:
-        if getattr(cfg, lever):
-            raise NotImplementedError(f"{lever}={getattr(cfg, lever)!r} is not ported yet")
+    if cfg.param_dtype and cfg.family not in PARAM_DTYPE_FAMILIES:
+        raise NotImplementedError(
+            f"param_dtype={cfg.param_dtype!r} is honoured by the {PARAM_DTYPE_FAMILIES} "
+            f"families only (the reference's {cfg.family} family ignores it)")
     for field in ("attention_impl", "ssm_impl"):
         if getattr(cfg, field) not in IMPLS:
             raise ValueError(f"{field} must be one of {IMPLS}, got {getattr(cfg, field)!r}")
@@ -65,6 +75,27 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def param_dtype_of(cfg: ModelConfig) -> torch.dtype:
+    """Storage dtype for parameters (weight-only quantization lever)."""
+
+    return getattr(torch, cfg.param_dtype or cfg.dtype)
+
+
+def wcast(cfg: ModelConfig, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weight cast right before a matmul (perf lever
+    ``matmul_weight_dtype``, e.g. ``"float8_e4m3fn"``; ``None`` leaves it),
+    then held in ``dtype``, the dtype the product runs in.  The reference
+    multiplies the cast weight with ``preferred_element_type``; torch
+    multiplies only operands of one dtype, so the product takes the cast
+    values dequantized, with no scale, as the reference's does.  The same
+    second cast lets a weight stored in fp8 (``param_dtype``) meet a bf16
+    activation."""
+
+    if cfg.matmul_weight_dtype is not None:
+        w = w.to(getattr(torch, cfg.matmul_weight_dtype))
+    return w.to(dtype)
 
 
 def checkpointed(fn, *args, **kw):
@@ -200,7 +231,7 @@ def _attend_chunked(q, k, v, n_rep, scale, causal, smax=torch.float32):
 # ---------------------------------------------------------------------------
 
 def _project_qkv(cfg: ModelConfig, w, x: torch.Tensor):
-    q, k, v = _matmul(x, w.wq), _matmul(x, w.wk), _matmul(x, w.wv)
+    q, k, v = (_matmul(x, wcast(cfg, t, x.dtype)) for t in (w.wq, w.wk, w.wv))
     if cfg.qk_norm:
         q = rms_norm(q, w.q_norm, cfg.norm_eps)
         k = rms_norm(k, w.k_norm, cfg.norm_eps)
@@ -231,8 +262,9 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
     smax = getattr(torch, cfg.softmax_dtype)
 
     if cross_kv is not None:
-        o = _attend_direct(_matmul(x, w.wq), *cross_kv, n_rep, scale, causal=False)
-        return _matmul(o, w.wo, axes=2), None
+        o = _attend_direct(_matmul(x, wcast(cfg, w.wq, x.dtype)), *cross_kv, n_rep, scale,
+                           causal=False)
+        return _matmul(o, wcast(cfg, w.wo, x.dtype), axes=2), None
 
     q, k, v = _project_qkv(cfg, w, x)
     if cfg.rope_theta > 0:
@@ -262,7 +294,7 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
         o = _gqa_out(p, cv, n_rep)
         new_cache = (ck, cv)
 
-    return _matmul(o, w.wo, axes=2), new_cache
+    return _matmul(o, wcast(cfg, w.wo, x.dtype), axes=2), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -270,12 +302,12 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mlp(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
-    h = _matmul(x, w.w1)
+    h = _matmul(x, wcast(cfg, w.w1, x.dtype))
     if cfg.swiglu:
-        h = F.silu(h) * _matmul(x, w.w3)
+        h = F.silu(h) * _matmul(x, wcast(cfg, w.w3, x.dtype))
     else:
         h = F.gelu(h, approximate="tanh")
-    return _matmul(h, w.w2)
+    return _matmul(h, wcast(cfg, w.w2, x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +333,7 @@ def moe_routing(cfg: ModelConfig, w, x: torch.Tensor):
         raise ValueError(f"seq {s} not divisible by moe group {g}")
     cap = max(math.ceil(g * k / e * cfg.capacity_factor), 1)
     # f32 logits from the operands' values, as preferred_element_type=f32
-    logits = x.reshape(b, s // g, g, d).float() @ w.router.float()
+    logits = x.reshape(b, s // g, g, d).float() @ wcast(cfg, w.router, torch.float32)
     probs = torch.softmax(logits, dim=-1)
     # top-k with ties to the lower index (jax.lax.top_k's order): a stable sort
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -339,12 +371,12 @@ def moe_mlp(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     xg = x.reshape(b, s // g, g, d)
     ein = torch.einsum("bngd,bngec->bnecd", xg, dispatch.to(dt))
-    h = torch.einsum("bnecd,edf->bnecf", ein, w.w1)
+    h = torch.einsum("bnecd,edf->bnecf", ein, wcast(cfg, w.w1, dt))
     if cfg.swiglu:
-        h = F.silu(h) * torch.einsum("bnecd,edf->bnecf", ein, w.w3)
+        h = F.silu(h) * torch.einsum("bnecd,edf->bnecf", ein, wcast(cfg, w.w3, dt))
     else:
         h = F.gelu(h, approximate="tanh")
-    eout = torch.einsum("bnecf,efd->bnecd", h, w.w2)
+    eout = torch.einsum("bnecf,efd->bnecd", h, wcast(cfg, w.w2, dt))
     out = torch.einsum("bnecd,bngec->bngd", eout, combine.to(dt))
     return out.reshape(b, s, d)
 
@@ -373,7 +405,9 @@ def _causal_conv1d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
     out = sum(xp[:, i: i + x.shape[1], :] * kernel[i][None, None, :] for i in range(k))
     out = F.silu(out + bias[None, None, :])
-    return out, xp[:, xp.shape[1] - (k - 1):, :]
+    # the tail is copied: a view would keep the whole (B, S+K-1, C) input
+    # alive in the layer's state
+    return out, xp[:, xp.shape[1] - (k - 1):, :].clone()
 
 
 def _assoc_scan(a: torch.Tensor, bx: torch.Tensor):
@@ -441,6 +475,39 @@ def _scan_chunk(h, d, bm, cm, xc, *, A_full=None, A_head=None, headdim=1):
     return y.to(xc.dtype), hs[:, -1].reshape(b, nh * headdim, n).clone()
 
 
+def _ssm_scan_fused_m1(cfg: ModelConfig, w, xi: torch.Tensor, h0: torch.Tensor, chunk: int):
+    """Mamba-1 scan with x_proj, dt_proj and softplus run inside each chunk
+    (perf lever ``mamba_fused_proj``), the chunk recomputed in the backward
+    pass: the full-sequence f32 ``delta`` (B,S,DI) and the (B,S,dr+2n)
+    projection never exist, only one chunk's.  Positions past the true
+    length get delta 0 (a = 1, bx = 0), so a padded last chunk leaves the
+    state as it was; a pad of x alone would not, since softplus(dt_bias) is
+    not 0."""
+
+    s = xi.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        xi = F.pad(xi, (0, 0, 0, pad))
+    A = -torch.exp(w.A_log.float())  # (DI,N)
+    h, ys = h0, []
+    for off in range(0, s + pad, chunk):
+        y, h = checkpointed(_fused_chunk_m1, cfg, w, h, xi[:, off: off + chunk], off, s, A)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :s], h
+
+
+def _fused_chunk_m1(cfg: ModelConfig, w, h, xc, off: int, s: int, A):
+    """One chunk of :func:`_ssm_scan_fused_m1`: its projections, then
+    :func:`_scan_chunk`."""
+
+    n, dr = cfg.ssm_state, cfg.dt_rank_
+    delta_r, B_c, C_c = _matmul(xc, w.x_proj).split([dr, n, n], dim=-1)
+    delta = F.softplus(_matmul(delta_r, w.dt_proj).float() + w.dt_bias.float())
+    valid = (off + torch.arange(xc.shape[1], device=xc.device) < s)[None, :, None]
+    delta = torch.where(valid, delta, 0.0)
+    return _scan_chunk(h, delta, B_c.float(), C_c.float(), xc, A_full=A)
+
+
 def _ssm_step(delta, B_ssm, C_ssm, xi, h0, *, A_full=None, A_head=None, headdim=1):
     """Single decode step of the scan (S == 1)."""
 
@@ -458,7 +525,10 @@ def _ssm_step(delta, B_ssm, C_ssm, xi, h0, *, A_full=None, A_head=None, headdim=
 
 def mamba1_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = None):
     """Mamba-1 (S6) block.  x: (B,S,D).  With ``state`` and S == 1 it runs one
-    decode step, updating the conv window and the hidden state."""
+    decode step, updating the conv window and the hidden state.  Under
+    ``mamba_fused_proj`` a multi-token step runs :func:`_ssm_scan_fused_m1`,
+    which comes before ``ssm_impl`` as in the reference: a fused prefill
+    never reaches the ``ssm_scan`` kernel, in either package."""
 
     b, s, _ = x.shape
     di, n, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
@@ -469,20 +539,23 @@ def mamba1_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
     h0 = (state.h.float() if state is not None
           else torch.zeros(b, di, n, dtype=torch.float32, device=x.device))
 
-    delta_r, B_ssm, C_ssm = _matmul(xi, w.x_proj).split([dr, n, n], dim=-1)
-    delta = F.softplus(_matmul(delta_r, w.dt_proj).float() + w.dt_bias.float())  # (B,S,DI)
-    A = -torch.exp(w.A_log.float())  # (DI,N)
-    B32, C32 = B_ssm.float().contiguous(), C_ssm.float().contiguous()
-    if s == 1:
-        y, h_last = _ssm_step(delta, B32, C32, xi, h0, A_full=A)
-    elif cfg.ssm_impl == "kernel":
-        if state is not None:
-            raise ValueError("the scan kernel starts from h = 0; a multi-token "
-                             "step from a state needs ssm_impl='torch'")
-        y, h_last = ssm_scan_op(delta, B32, C32, xi, A, block_d=min(512, di),
-                                chunk=min(cfg.scan_chunk, s))
+    if cfg.mamba_fused_proj and s > 1:
+        y, h_last = _ssm_scan_fused_m1(cfg, w, xi, h0, min(cfg.scan_chunk, s))
     else:
-        y, h_last = _ssm_scan(delta, B32, C32, xi, h0, min(cfg.scan_chunk, s), A_full=A)
+        delta_r, B_ssm, C_ssm = _matmul(xi, w.x_proj).split([dr, n, n], dim=-1)
+        delta = F.softplus(_matmul(delta_r, w.dt_proj).float() + w.dt_bias.float())  # (B,S,DI)
+        A = -torch.exp(w.A_log.float())  # (DI,N)
+        B32, C32 = B_ssm.float().contiguous(), C_ssm.float().contiguous()
+        if s == 1:
+            y, h_last = _ssm_step(delta, B32, C32, xi, h0, A_full=A)
+        elif cfg.ssm_impl == "kernel":
+            if state is not None:
+                raise ValueError("the scan kernel starts from h = 0; a multi-token "
+                                 "step from a state needs ssm_impl='torch'")
+            y, h_last = ssm_scan_op(delta, B32, C32, xi, A, block_d=min(512, di),
+                                    chunk=min(cfg.scan_chunk, s))
+        else:
+            y, h_last = _ssm_scan(delta, B32, C32, xi, h0, min(cfg.scan_chunk, s), A_full=A)
     y = y + xi * w.D[None, None, :].to(x.dtype)
     y = y * F.silu(z)
     return _matmul(y, w.out_proj), SSMState(conv=conv_tail, h=h_last)
@@ -527,12 +600,25 @@ def mamba2_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb[tokens].to(dtype_of(cfg))
+    """The table's rows of ``tokens``, in the activation dtype.  Under
+    ``embed_onehot`` a one-hot in the table's dtype times the table: one
+    nonzero a row, so the gather's values bit for bit.  The one-hot is
+    scattered in place, not made by ``F.one_hot``, whose int64 would take
+    four times its (B, S, V) bytes; an fp8 table's product runs in the
+    activation dtype (torch multiplies no fp8 operands), which holds its
+    values exactly."""
+
+    if not cfg.embed_onehot:
+        return emb[tokens].to(dtype_of(cfg))
+    dt = emb.dtype if emb.dtype.itemsize > 1 else dtype_of(cfg)
+    onehot = torch.zeros(*tokens.shape, emb.shape[0], dtype=dt, device=emb.device)
+    onehot.scatter_(-1, tokens[..., None].long(), 1)
+    return (onehot @ emb.to(dt)).to(dtype_of(cfg))
 
 
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     head = params.tok_emb.T if cfg.tie_embeddings else params.lm_head
-    return x @ head
+    return x @ wcast(cfg, head, x.dtype)
 
 
 def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -65,6 +65,24 @@ def get_model(cfg: ModelConfig, device: "torch.device | str | None" = None) -> M
     )
 
 
+def frontend_inputs(cfg: ModelConfig, batch: int, seed: int,
+                    device: "torch.device | str | None" = None) -> dict:
+    """The stubbed modality frontends' outputs for a batch of ``batch``: the
+    VLM's ``patch_embeds`` (its first ``n_patches`` positions) or the
+    encoder-decoder's ``frames``, standard normal from ``seed`` in the model
+    dtype on ``device`` (``None``: the CUDA card); nothing for the other
+    families."""
+
+    key, n = {"vlm": ("patch_embeds", cfg.n_patches),
+              "encdec": ("frames", cfg.n_frames)}.get(cfg.family, (None, 0))
+    if key is None:
+        return {}
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {key: torch.randn(batch, n, cfg.d_model, generator=g, device=dev).to(
+        layers.dtype_of(cfg))}
+
+
 def input_specs(cfg: ModelConfig, kind: str, batch: int, seq: int) -> dict:
     """Meta tensors standing for every model input of a step kind:
     ``"train"`` (tokens and labels), ``"prefill"`` (tokens) or ``"decode"``

@@ -67,7 +67,10 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 
 def empty_params(cfg: ModelConfig, device, dtype_of_leaf=None) -> ModelParams:
-    dt = L.dtype_of(cfg)
+    """Every leaf in ``param_dtype`` (default: the model dtype), as the
+    reference's ``init_params`` stores them, norms included."""
+
+    dt = L.param_dtype_of(cfg)
     return ModelParams(param_specs(cfg), dtype_of_leaf or (lambda name: dt),
                        torch.device(device))
 
@@ -76,7 +79,7 @@ def empty_params(cfg: ModelConfig, device, dtype_of_leaf=None) -> ModelParams:
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
     """The reference's init scales (norms 1, embeddings and the MoE router
     0.02, the rest 0.02/sqrt(2L)), drawn in f32 from ``generator`` on its
-    device."""
+    device and rounded to the storage dtype."""
 
     params = empty_params(cfg, generator.device)
     for name, t in params.named_parameters():

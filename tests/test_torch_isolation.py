@@ -40,7 +40,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_memory_probe.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
@@ -264,3 +265,13 @@ def test_chip_smoke_refuses_without_cuda():
                           capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_chip_memory_probe_refuses_without_cuda():
+    """Without a card the memory probe exits nonzero and prints no reading."""
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_memory_probe.py")], env=env,
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 2
+    assert proc.stdout == ""

@@ -136,18 +136,23 @@ def test_init_draws_the_reference_scales(arch):
 
 
 def test_unported_config_raises():
-    """The four perf levers still wait for their slice; an unknown family
-    or arch, a Mamba version its family does not run, and an impl of the
-    reference's names raise."""
+    """The four perf levers build (each is held against the reference in
+    ``tests/test_torch_levers.py``); ``param_dtype`` is refused for the
+    ssm, hybrid and encdec families, whose reference init ignores it; an
+    unknown family or arch, a Mamba version its family does not run, and
+    an impl of the reference's names raise."""
 
     cfg = get_smoke_config("qwen3-1.7b")
     for over in ({"embed_onehot": True}, {"matmul_weight_dtype": "float8_e4m3fn"},
                  {"param_dtype": "float8_e4m3fn"}, {"mamba_fused_proj": True}):
-        with pytest.raises(NotImplementedError):
-            get_model(dataclasses.replace(cfg, **over), "cpu")
-    with pytest.raises(NotImplementedError, match="mamba_fused_proj"):
-        get_model(dataclasses.replace(get_smoke_config("falcon-mamba-7b"),
-                                      mamba_fused_proj=True), "cpu")
+        assert get_model(dataclasses.replace(cfg, **over), "cpu").cfg == \
+            dataclasses.replace(cfg, **over)
+    get_model(dataclasses.replace(get_smoke_config("falcon-mamba-7b"), mamba_fused_proj=True),
+              "cpu")
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="param_dtype"):
+            get_model(dataclasses.replace(get_smoke_config(arch), param_dtype="float8_e4m3fn"),
+                      "cpu")
     with pytest.raises(ValueError, match="family"):
         get_model(dataclasses.replace(cfg, family="diffusion"), "cpu")
     with pytest.raises(ValueError, match="unknown arch"):
@@ -161,6 +166,28 @@ def test_unported_config_raises():
         get_model(dataclasses.replace(cfg, attention_impl="pallas"), "cpu")
     for arch in ("moonshot-v1-16b-a3b", "grok-1-314b", "internvl2-26b", "whisper-tiny"):
         assert get_model(get_smoke_config(arch), "cpu").cfg.name.startswith(arch)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_conv_state_owns_its_storage(arch):
+    """A Mamba block's conv state is a copy of the last K-1 inputs, not a
+    view that keeps the whole (B, S+K-1, C) padded input alive."""
+
+    cfg = dataclasses.replace(get_smoke_config(arch), attention_impl="torch", ssm_impl="torch")
+    params = get_model(cfg, "cpu").init_params(0)
+    block = TL.mamba1_block if cfg.family == "ssm" else TL.mamba2_block
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(B, 64, cfg.d_model)).astype(
+        np.float32)).to(TL.dtype_of(cfg))
+    with torch.no_grad():
+        _, state = block(cfg, params.layers[0], x, None)
+    tail = state.conv
+    assert tail.shape[1] == cfg.d_conv - 1
+    assert tail.untyped_storage().nbytes() == tail.numel() * tail.element_size()
+    # the smallest case: a 768-byte tail, which as a view held 525,056 bytes
+    x = torch.randn(1, 2048, 64)
+    _, small = TL._causal_conv1d(x, torch.randn(4, 64), torch.zeros(64), None)
+    assert torch.equal(small, x[:, -3:])
+    assert small.untyped_storage().nbytes() == 768
 
 
 # -- layers ---------------------------------------------------------------

@@ -33,7 +33,9 @@ def to_jax(t: dict, dtype=jnp.float32) -> dict:
 
 
 def to_torch(t: dict, dtype=torch.float32) -> dict:
-    return {k: torch.from_numpy(v).to(dtype) for k, v in t.items()}
+    # a copy: ``apply_updates`` writes the port's leaves in place, and JAX on
+    # the CPU may read the same NumPy buffer for its own, asynchronously
+    return {k: torch.from_numpy(v.copy()).to(dtype) for k, v in t.items()}
 
 
 def f32(x) -> np.ndarray:

@@ -79,9 +79,16 @@ def f32(x) -> np.ndarray:
 
 
 def reference_leaf(tree: dict, name: str):
-    """The reference leaf of a port parameter name (``layers.3.wq``)."""
+    """The reference leaf of a port parameter name (``layers.3.wq``; the
+    hybrid's ``layers.3.in_proj`` is ``tree["mamba"]["in_proj"][3 // E, 3 %
+    E]``, its ``shared.wq`` is ``tree["shared"]["wq"]``)."""
 
     parts = name.split(".")
+    if parts[0] == "shared":
+        return tree["shared"][parts[1]]
+    if parts[0] == "layers" and "mamba" in tree:
+        leaf = tree["mamba"][parts[2]]
+        return leaf[divmod(int(parts[1]), leaf.shape[1])]
     if parts[0] == "layers":
         return tree["layers"][parts[2]][int(parts[1])]
     return tree[name]
@@ -190,10 +197,13 @@ def test_checkpoint_runs_only_under_grad(monkeypatch, long_attention):
 
 
 VARIANTS = {"plain": {}, "compressed": {"compress": True}, "microbatch2": {"microbatch": 2}}
+# the hybrid (zamba2 smoke: G = 2 groups of E = 2 layers) with compression,
+# whose rows are groups of layers
+STEP_CASES = [(arch, variant) for arch in ARCHS for variant in sorted(VARIANTS)] + [
+    ("zamba2-2.7b", "compressed")]
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,variant", STEP_CASES)
 def test_three_train_steps_agree(arch, variant):
     kw = dict(VARIANTS[variant])
     compress = kw.pop("compress", False)
@@ -263,6 +273,26 @@ def test_cli_arch_trains_on_the_torch_paths(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "attention_impl='torch', ssm_impl='torch'" in out
     assert out.count("] step") == 3
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("whisper-tiny", []), ("zamba2-2.7b", ["--compress-grads"]), ("internvl2-26b", []),
+    ("moonshot-v1-16b-a3b", [])])
+def test_cli_trains_every_family(arch, extra, tmp_path, capsys):
+    """The encoder-decoder (frames), the hybrid (compressed by groups of
+    layers), the VLM (patch embeddings) and the MoE train from the CLI at
+    their smoke widths, with a checkpoint and a resume."""
+
+    args = ["--device", "cpu", "--arch", arch, "--batch", "2", "--seq", "16",
+            "--log-every", "1", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2", *extra]
+    train.main(args + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert out.count("] step") == 3
+    losses = [float(line.split()[4]) for line in out.splitlines() if "] step" in line]
+    assert all(np.isfinite(losses))
+    train.main(args + ["--steps", "4", "--resume"])
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 3" in out and out.count("] step") == 1
 
 
 def test_tree_from_params_is_the_reference_layout():

@@ -34,7 +34,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    exactly once (every shard's streams in one matrix); bytes must be
    conserved, and the card's result must match the same sweep run on the
    CPU; the first call is timed again in parts, scoring per shard and in
-   one launch taking turns;
+   one launch taking turns; one more steady call is timed after each of
+   the profiled run, the first call's parts and the CPU run;
+   sanitize — the fleet path with every sanitizer check armed
+   (``sanitizing()``, ``sanitize=True``): the 16 golden fixtures through
+   ``FleetProgram``, bit-equal to the unsanitized card runs above; the
+   sweep's steady calls with checks off and on in turns, best of 3 each,
+   timed in the sweep before its profiled and CPU runs, and one more
+   checked call on the sweep's program (tapes cached), each bit-equal to
+   the sweep; the output checks timed alone; a NaN seeded into the
+   golden ``mixed-burst`` tape, which must raise ``SanitizerError`` on the
+   card when sanitized and reach ``io_seconds`` when not; and
+   ``FleetSimulator`` and ``BurstBufferService`` on service load (a) below,
+   each bit-equal to its unsanitized twin; ``stream_stats`` launches one a
+   program or run, none on the cached sweep (``launches_sanitize``);
    ftl     — the same sweep with ``ssd="ftl"`` (first call, best of 3
    steady calls, device busy share, GC relocations and write
    amplification): bytes conserved, card equal to the CPU, and within
@@ -73,8 +86,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    moonshot-v1-16b-a3b (MoE: top 6 of 64 experts), internvl2-26b (VLM:
    256 seeded patch embeddings over the first positions) and whisper-tiny
    (encoder-decoder: 1,500 seeded frames, a 416-token decoder prompt) at
-   full width and depth, and grok-1-314b (MoE: top 2 of 8 experts at d_ff
-   32,768) at full width and depth 4, in bf16, batch 4, prompt 2048 (but
+   full width and depth (zamba2 at 18 of its 54 layers, three groups), and
+   grok-1-314b (MoE: top 2 of 8 experts at d_ff 32,768) at full width and
+   depth 4, in bf16, batch 4, prompt 2048 (but
    whisper's), 32 greedy tokens, with launch counts reset just before and
    read just after each (attention once a layer, zamba2's once a group of
    six layers, whisper's once an encoder and once a decoder layer; the
@@ -86,8 +100,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    in f32), decode against forward (MoE at ``moe_group_size=1``), and the
    ``"torch"`` prefill against the kernel prefill;
 7. f32     — decode against forward and the ``"torch"`` prefill against
-   the kernel prefill, at full width in f32, at full depth but where it
-   does not fit (moonshot at 12 layers, internvl2 at 24, grok at 1); and
+   the kernel prefill, at full width in f32, at full depth (zamba2's 54
+   layers too) but where it does not fit (moonshot at 12 layers, internvl2
+   at 24, grok at 1); and
    card against CPU: each model at full width, depth 2 (zamba2: one group
    of six; whisper: all 4 + 4), one 256-token prompt (internvl2: 512),
    f32 with TF32 off, the same weights on both, with the share of MoE
@@ -164,6 +179,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis import sanitize, sanitizing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import FleetProgram, TraceBatch, compute_stream_scores  # noqa: E402
 from repro_torch.core import FleetResult, FleetSimulator, run_schemes  # noqa: E402
@@ -227,20 +243,25 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # text context (max_target_positions); its encoder takes 1,500 frames
 PROMPT_OF = {"whisper-tiny": 416}
 # grok-1-314b at full width: its 64 layers are 628 GB in bf16, one layer 4.9 B
-# parameters, so 4 layers (42.5 GB with the embeddings) are served
-SERVE_DEPTH = {"grok-1-314b": 4}
+# parameters, so 4 layers (42.5 GB with the embeddings) are served.
+# zamba2-2.7b's bf16 serve is cut to 3 of its 9 groups of six layers for the
+# script's time limit: its prefill runs the Mamba-2 torch scan (about 14 s at
+# batch 4 over 54 layers, six prefills in the phase); phase_f32_paths still
+# drives all 54 layers (F32_DEPTH)
+SERVE_DEPTH = {"grok-1-314b": 4, "zamba2-2.7b": 18}
 # phase_f32_paths in f32 at full width: moonshot's 48 layers need 112 GB,
 # internvl2's 48 79.4 GB and grok's 4 85 GB, so their depth is cut; grok's to
 # 1, since at 2 (46 GB of weights) the f32 expert transients of one-token
 # routing groups (about 35 GB at 4 x 2048) do not fit beside them
-F32_DEPTH = {"moonshot-v1-16b-a3b": 12, "internvl2-26b": 24, "grok-1-314b": 1}
+F32_DEPTH = {"moonshot-v1-16b-a3b": 12, "internvl2-26b": 24, "grok-1-314b": 1,
+             "zamba2-2.7b": 54}
 SERVE_SEED = 0
 BF16_TOL = 0.08  # tests/test_models_smoke.py (2 layers)
 # Decode against forward, and the "torch" prefill against the kernel one,
 # are gated in bf16 at BF16_TOL where that holds: the dense archs.  After
 # falcon-mamba-7b's 64 bf16 layers the gaps are rounding (0.172 and 0.217 at
 # logits up to 5.75, while decode against forward in f32 at full depth
-# agrees to 4e-5), and after zamba2-2.7b's 54 (0.127 and 0.148; 1.9e-5 and
+# agrees to 4e-5), and after zamba2-2.7b's 54 layers (0.127 and 0.148; 1.9e-5 and
 # 1.3e-5 in f32), so there the bf16 values are recorded, argmax agreement
 # is gated, and phase_f32_paths holds both comparisons in f32 at full width
 # and depth.  moonshot-v1-16b-a3b, internvl2-26b and whisper-tiny stay well
@@ -690,14 +711,23 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
     return out
 
 
-def phase_golden(dev: torch.device) -> None:
+def golden_program(dev: torch.device, batch: TraceBatch, policy: str) -> FleetProgram:
+    """The fixture matrix's four schemes under ``policy`` in one program."""
+
+    return FleetProgram(num_nodes=golden.FIXTURE_NODES, schemes=golden.FIXTURE_SCHEMES,
+                        policy=policy, ssd_capacity=golden._node_capacity(batch.total_bytes),
+                        device=dev)
+
+
+def phase_golden(dev: torch.device) -> dict:
+    """The 16 fixtures on the card; returns (workload, policy) -> the
+    program's results."""
+
+    runs = {}
     for wl in golden.FIXTURE_WORKLOADS:
         batch = golden_trace(wl)
-        cap = golden._node_capacity(batch.total_bytes)
         for policy in golden.FIXTURE_POLICIES:
-            res = FleetProgram(num_nodes=golden.FIXTURE_NODES,
-                               schemes=golden.FIXTURE_SCHEMES, policy=policy,
-                               ssd_capacity=cap, device=dev).run(batch)
+            res = runs[wl, policy] = golden_program(dev, batch, policy).run(batch)
             for scheme, fr in res.items():
                 path = golden.GOLDEN_DIR / golden.fixture_name(scheme, wl, policy)
                 payload = golden.load_fixture(path)
@@ -728,6 +758,7 @@ def phase_golden(dev: torch.device) -> None:
             and io["ssdup+_gate0.75"] < io["orangefs"]):
         fail(f"anomaly ordering lost: {io}")
     log(f"[golden] anomaly: 4 keys met, io_seconds {json.dumps(io)}")
+    return runs
 
 
 def first_call_parts(dev: torch.device, prog: FleetProgram, batch: TraceBatch,
@@ -809,14 +840,40 @@ def conserved(label: str, res: dict, total: int) -> None:
             fail(f"{label} {s}: non-finite or negative clocks")
 
 
+def host_probe(dev: torch.device) -> dict:
+    """The host's speed and the cost of a launch, to tell them apart: a
+    fixed pure-Python loop (s) and 20,000 launches of a one-element add
+    (µs a launch, host clock, ending in a synchronise)."""
+
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(2_000_000):
+        acc += i & 7
+    python_s = time.perf_counter() - t0
+    x = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20_000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return {"python_s": python_s, "launch_us": (time.perf_counter() - t0) / 20_000 * 1e6}
+
+
 def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
-                ) -> tuple[dict, int, dict, float, FleetProgram]:
+                ) -> tuple[dict, int, dict, float, FleetProgram, dict]:
     """The fleet main path at real size with storage model ``ssd``: one
     ``stream_stats`` launch, first call, best of 3 steady calls, device
     busy share; bytes conserved and the card equal to the CPU (integer
-    fields exact, clocks within 1e-9 relative).  Returns the launch
-    counts, the wide-branch rows, the result, the best steady time and the
-    program."""
+    fields exact, clocks within 1e-9 relative).  With the constant SSD the
+    steady calls take turns with 3 calls under ``sanitizing()`` (off, on,
+    on, off, off, on), each bit-equal to the first call, before anything
+    else runs; then one more unchecked call is timed after each later step
+    (the profiled run, the first call's parts, the CPU run), to show which
+    of them slows the calls after it, and :func:`host_probe` runs before
+    the steady calls, after them and after the profiled and CPU runs.  Returns the launch counts, the
+    wide-branch rows, the result, the best steady time, the program and
+    the steady times (``"off"``, ``"on"``, ``"after"``, and ``"cpu_share"``:
+    the main thread's CPU time over the wall time of each timed call)."""
 
     tag = "[sweep]" if ssd == "constant" else f"[{ssd}]"
     t_phase = time.perf_counter()
@@ -836,14 +893,35 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     if launches["stream_stats"] != 1:
         fail(f"{tag} stream_stats launched {launches['stream_stats']} times on the "
              "main path, expected exactly 1 (all shards in one launch)")
-    steady = []
-    for _ in range(3):
-        t0 = time.perf_counter()
+    probe = ssd == "constant"
+    first = res
+
+    def one_call() -> float:
+        nonlocal res
+        torch.cuda.synchronize()
+        t0, cpu0 = time.perf_counter(), time.thread_time()
         res = prog.run(batch)
         torch.cuda.synchronize()
-        steady.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        times["cpu_share"].append((time.thread_time() - cpu0) / wall)
+        return wall
+
+    # cpu_share: the main thread's CPU time over the wall time of each call
+    times = {"off": [], "on": [], "after": {}, "cpu_share": []}
+    probes = {"before_steady": host_probe(dev)} if probe else {}
+    for on in (False, True, True, False, False, True) if probe else (False,) * 3:
+        with sanitizing(on):
+            times["on" if on else "off"].append(one_call())
+        if probe:
+            same_fleet(f"(b) sweep (checks {'on' if on else 'off'})", res, first)
+    steady = times["off"]
     t_best = min(steady)
+    if probe:
+        probes["after_steady"] = host_probe(dev)
     t_prof, busy, n_ops = device_time(lambda: prog.run(batch))
+    if probe:
+        probes["after_profiled_run"] = host_probe(dev)
+        times["after"]["profiled_run"] = one_call()
     conserved(tag, res, batch.total_bytes)
     totals = {s: fr.total_bytes for s, fr in res.items()}
     log(f"{tag} ssd={ssd!r}, {batch.num_requests:,} requests, {SWEEP_NODES} nodes x "
@@ -857,15 +935,24 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
         f"by the stream kernel's wide branch: {wide}")
     log(f"{tag} total bytes per scheme: {json.dumps(totals)}")
 
-    if ssd == "constant":
+    if probe:
         first_call_parts(dev, prog, batch, t_first)
+        times["after"]["first_call_parts"] = one_call()
 
     t0 = time.perf_counter()
     worst = same_within(f"{tag} card vs cpu", res, FleetProgram(device="cpu", **kw).run(batch))
     log(f"{tag} card == cpu: integer fields exact, clocks max rel diff "
         f"{worst:.3g} (cpu run {time.perf_counter() - t0:.1f} s)")
+    if probe:
+        probes["after_cpu_run"] = host_probe(dev)
+        log(f"{tag} host probe (a pure-Python loop s, a one-element add's launch us): "
+            f"{json.dumps(probes)}")
+        times["after"]["cpu_run"] = one_call()
+        log(f"{tag} one steady call after each later step (s): {json.dumps(times['after'])} "
+            f"(best steady before them {t_best:.4f} s); the main thread's cpu time over "
+            f"the wall time of each timed steady call, in order: {json.dumps(times['cpu_share'])}")
     log(f"{tag} sweep and card-vs-cpu {time.perf_counter() - t_phase:.1f} s")
-    return launches, wide, res, t_best, prog
+    return launches, wide, res, t_best, prog, times
 
 
 FTL_HOST_REQUESTS = 100_000  # the host FTL comparison's cut (see phase_ftl_sweep)
@@ -908,7 +995,7 @@ def phase_ftl_sweep(dev: torch.device, batch: TraceBatch) -> dict:
     requests, its capacity cut in proportion (half a node's share)."""
 
     t_phase = time.perf_counter()
-    launches, _, _, _, prog = phase_sweep(dev, batch, ssd="ftl")
+    launches, _, _, _, prog, _ = phase_sweep(dev, batch, ssd="ftl")
     per_scheme, wa = ftl_gc(prog, batch)
     reloc = sum(per_scheme.values())
     log(f"[ftl] GC relocations (ftl_reloc) {reloc:.1f} pages over all lanes "
@@ -1250,6 +1337,175 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
         out[stream_len] = {"launches": launches, "long_rows": long}
     log(f"[any-len] phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# -- the fleet path with the sanitizer armed --------------------------------
+
+
+def same_fleet(label: str, got: dict, want: dict) -> None:
+    """Every field of every scheme's ``FleetResult`` bit-equal."""
+
+    for s in want:
+        if golden.fleet_result_to_dict(got[s]) != golden.fleet_result_to_dict(want[s]):
+            fail(f"[sanitize] {label} {s}: the sanitized run differs from the unsanitized one")
+
+
+def stream_launches(fn):
+    """``fn()``'s result and the ``stream_stats`` launches it made."""
+
+    ops.reset_launches()
+    out = fn()
+    return out, ops.launches["stream_stats"]
+
+
+def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swept: dict,
+                   prog: FleetProgram, sweep_times: dict) -> dict:
+    """The fleet main path on the card with every sanitizer check armed.
+    (a) the 16 golden fixtures through ``FleetProgram`` under
+    ``sanitizing()``, bit-equal to :func:`phase_golden`'s unsanitized runs
+    and within each fixture's ``device_tolerance``, one ``stream_stats``
+    launch a program; (b) the sweep on :func:`phase_sweep`'s program (its
+    tapes cached: no launch): one more call under ``sanitizing()``,
+    bit-equal to :func:`phase_sweep`'s result, the output checks timed
+    alone, and the steady times with checks off and on, best of 3 each,
+    that :func:`phase_sweep` took in turns before its profiled and CPU
+    runs (``sweep_times``); (c) a NaN in the
+    first event of the golden ``mixed-burst`` tape: ``replay_lanes`` on the
+    card raises ``SanitizerError`` (``non-finite``) when sanitized, and the
+    NaN reaches ``io_seconds[0]`` when not; (d) ``FleetSimulator`` and
+    ``BurstBufferService(score_backend="kernel")`` with ``sanitize=True``
+    on service load (a), each bit-equal to its unsanitized twin, one launch
+    a run (the shard-conservation and byte-ledger checks armed).  Returns
+    the launches of each part and the timings."""
+
+    t_phase = time.perf_counter()
+    launches, out = {}, {}
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    for (wl, policy), plain in golden_runs.items():
+        gb = golden_trace(wl)
+        with sanitizing():
+            checked = golden_program(dev, gb, policy).run(gb)
+        same_fleet(f"(a) {wl} {policy}", checked, plain)
+        for s, fr in checked.items():
+            payload = golden.load_fixture(golden.fixture_path(s, wl, policy))
+            diffs = golden.check_fixture(payload, fr, tolerances=payload["device_tolerance"])
+            if diffs:
+                fail(f"[sanitize] (a) {s}__{wl}__{policy}:\n" + "\n".join(diffs))
+    launches["golden"] = ops.launches["stream_stats"]
+    if launches["golden"] != len(golden_runs):
+        fail(f"[sanitize] (a) stream_stats launched {launches['golden']} times, expected "
+             f"{len(golden_runs)} (one a program)")
+    log(f"[sanitize] (a) 16 golden fixtures sanitized on the card: every field bit-equal to "
+        f"the unsanitized card runs, within device_tolerance; {launches['golden']} launches "
+        f"for {len(golden_runs)} programs; {time.perf_counter() - t0:.2f} s")
+
+    ops.reset_launches()
+    with sanitizing():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prog.run(batch)
+        torch.cuda.synchronize()
+        t_late = time.perf_counter() - t0
+    same_fleet("(b) sweep (checks on)", res, swept)
+    launches["sweep"] = ops.launches["stream_stats"]
+    if launches["sweep"] != 0:
+        fail(f"[sanitize] (b) stream_stats launched {launches['sweep']} times on the sweep's "
+             "cached tapes, expected 0 (its first call, in phase_sweep, launched once)")
+    steady = {False: sweep_times["off"], True: sweep_times["on"]}
+    off, on = min(steady[False]), min(steady[True])
+    # the work the checks add, alone: replay_lanes' output checks on the
+    # sweep's 256 lanes, on the card (each check reads one flag back)
+    lanes = {f: torch.tensor([getattr(r, f) for s in SCHEMES for r in swept[s].node_results],
+                             dtype=torch.float64 if f in CLOCK_FIELDS else torch.int64,
+                             device=dev) for f in CLOCK_FIELDS + INT_FIELDS}
+    ed._check_outputs(lanes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ed._check_outputs(lanes)
+    checks_ms = (time.perf_counter() - t0) / 200 * 1e3
+    out["sweep"] = {"steady_off_s": steady[False], "steady_on_s": steady[True],
+                    "best_off_s": off, "best_on_s": on, "ratio": on / off,
+                    "checks_ms": checks_ms, "late_on_s": t_late,
+                    "after_s": sweep_times["after"]}
+    log(f"[sanitize] (b) the sweep, {batch.num_requests:,} requests on {SWEEP_NODES} nodes x "
+        f"{len(SCHEMES)} schemes, on phase_sweep's program: bit-equal to phase_sweep's result "
+        f"with checks on and off; steady (in phase_sweep, before its profiled and cpu runs) "
+        f"off {json.dumps(steady[False])} s, on {json.dumps(steady[True])} s; best off "
+        f"{off:.4f} s, on {on:.4f} s, ratio {on / off:.4f}; the output checks alone "
+        f"{checks_ms:.4f} ms a call ({checks_ms / 1e3 / off:.4%} of the best unchecked call); "
+        f"one checked call here {t_late:.4f} s; launches {launches['sweep']}")
+
+    gb = golden_trace("mixed-burst")
+    scores, launches["seeded_nan"] = stream_launches(
+        lambda: compute_stream_scores(gb, device=dev))
+    tape = ed.build_events(gb, scores)
+    net_t = tape["net_t"].copy()
+    net_t[0] = np.nan  # a NaN smuggled into a valid event
+    tape["net_t"] = net_t
+    args = (ed.stack_events([tape]),
+            ed._stack_lanes([ed.lane_consts("ssdup+", golden._node_capacity(gb.total_bytes))]),
+            ed._stack_lanes([ed.initial_lane_state("ssdup+", 64)]))
+    with sanitizing():
+        try:
+            ed.replay_lanes(*args, device=dev)
+        except sanitize.SanitizerError as err:
+            caught = str(err)
+        else:
+            fail("[sanitize] (c) a NaN in the tape replayed on the card under sanitizing() "
+                 "raised nothing")
+    if "non-finite" not in caught:
+        fail(f"[sanitize] (c) the NaN raised {caught!r}, expected a non-finite clock")
+    with sanitizing(False):
+        io = ed.replay_lanes(*args, device=dev)["io_seconds"]
+    if not np.isnan(io[0]):
+        fail(f"[sanitize] (c) unsanitized, the NaN did not reach io_seconds: {io[0]!r}")
+    log(f"[sanitize] (c) NaN in net_t[0] of the mixed-burst tape on the card: sanitized "
+        f"raises SanitizerError({caught!r}); unsanitized io_seconds[0] = {io[0]!r}")
+
+    a = service_load_a()
+    kw = dict(num_nodes=SERVICE_A_NODES, policy="range-offset",
+              ssd_capacity=max(a.total_bytes // 2 // SERVICE_A_NODES, 64 * MiB), device=dev)
+    launches["fleet_simulator"] = launches["service"] = 0
+    walls = {}
+    for s in SCHEMES:
+        runs = {}
+        for checked in (False, True):
+            t0 = time.perf_counter()
+            fleet, n = stream_launches(lambda: FleetSimulator(
+                scheme=s, score_backend="kernel", sanitize=checked, **kw).run(a))
+            t_fleet = time.perf_counter() - t0
+            launches["fleet_simulator"] += n
+            svc = BurstBufferService(scheme=s, score_backend="kernel", sanitize=checked, **kw)
+            if svc.sanitize != checked:
+                fail(f"[sanitize] (d) the service's sanitize flag is {svc.sanitize}")
+            t0 = time.perf_counter()
+            served, n = stream_launches(lambda: svc.run(a))
+            t_service = time.perf_counter() - t0
+            launches["service"] += n
+            runs[checked] = (fleet, served)
+            walls[f"{s}_{'on' if checked else 'off'}"] = {"fleet_simulator_s": t_fleet,
+                                                           "service_s": t_service}
+        same_fleet(f"(d) FleetSimulator {s}", {s: runs[True][0]}, {s: runs[False][0]})
+        if not same_service_result(runs[True][1], runs[False][1]):
+            fail(f"[sanitize] (d) BurstBufferService {s}: the sanitized run differs from the "
+                 "unsanitized one")
+    runs_d = 2 * len(SCHEMES)
+    if launches["fleet_simulator"] != runs_d or launches["service"] != runs_d:
+        fail(f"[sanitize] (d) stream_stats launched {launches['fleet_simulator']} times by "
+             f"FleetSimulator and {launches['service']} by the service, expected {runs_d} each "
+             "(one a run)")
+    out["load_a"] = walls
+    log(f"[sanitize] (d) service load (a), {a.num_requests:,} requests on {SERVICE_A_NODES} "
+        f"nodes: FleetSimulator and BurstBufferService(score_backend='kernel') with "
+        f"sanitize=True bit-equal to their unsanitized twins for every scheme; one launch a "
+        f"run; walls (s) {json.dumps(walls)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[sanitize] launches {json.dumps(launches)}")
+    log(f"[sanitize] phase {out['phase_s']:.1f} s")
+    return {"launches": launches, **out}
 
 
 # -- model kernels and the serve path ---------------------------------------
@@ -2490,9 +2746,10 @@ def main() -> int:
     worst = phase_kernels(dev)
     worst = max(worst, phase_any_width(dev))
     model_worst = check_model_kernels(dev)
-    phase_golden(dev)
+    golden_runs = phase_golden(dev)
     batch = sweep_trace(SWEEP_REQUESTS)
-    launches, wide, swept, t_sweep, _ = phase_sweep(dev, batch)
+    launches, wide, swept, t_sweep, prog, sweep_times = phase_sweep(dev, batch)
+    sanitized = phase_sanitize(dev, batch, golden_runs, swept, prog, sweep_times)
     ftl = phase_ftl_sweep(dev, batch)
     host = phase_host_engines(dev, batch, swept, t_sweep)
     service = phase_service(dev, batch, host["results"])
@@ -2503,6 +2760,7 @@ def main() -> int:
     kernels[0]["launches_host_engines"] = host["launches"]["stream_stats"]
     kernels[0]["launches_service"] = service["launches"]
     kernels[0]["service_scoring"] = service["kernel"]
+    kernels[0]["launches_sanitize"] = sanitized["launches"]
     model_launches = {}  # summed over the serve runs, per kernel instance
     for arch in SERVE_ARCHS:
         t_arch = time.perf_counter()

@@ -55,7 +55,9 @@ def test_scan_covers_the_host_engine_modules():
         assert f"service/{mod}.py" in names
     assert {"checkpoint/__init__.py", "checkpoint/tiered_store.py",
             "distributed/fault_tolerance.py", "testing/golden.py",
-            "testing/service.py"} <= names
+            "testing/service.py", "testing/perf.py", "analysis/engine.py",
+            "analysis/rules.py", "analysis/cli.py",
+            "analysis/__main__.py"} <= names
 
 
 _BLOCKED_RUN = r'''
@@ -69,6 +71,19 @@ batch = golden_trace("strided-gaps")
 res = FleetProgram(num_nodes=2, policy="round-robin-app", ssd_capacity=64 << 20,
                    device="cpu").run(batch)
 assert all(fr.total_bytes == batch.total_bytes for fr in res.values())
+from repro_torch.analysis import check_paths, sanitizing
+with sanitizing():
+    checked = FleetProgram(num_nodes=2, policy="round-robin-app", ssd_capacity=64 << 20,
+                           device="cpu").run(batch)
+assert checked == res
+import contextlib, io, pathlib, runpy
+import repro_torch
+assert check_paths([pathlib.Path(repro_torch.__file__).parent]) == []
+sys.argv, listing = ["python -m repro_torch.analysis", "--list-rules"], io.StringIO()
+with contextlib.redirect_stdout(listing), contextlib.suppress(SystemExit):
+    runpy.run_module("repro_torch.analysis", run_name="__main__", alter_sys=True)
+assert [l.split()[0] for l in listing.getvalue().splitlines() if l.startswith("SL")] == \
+    ["SL101", "SL104", "SL105", "SL106", "SL107", "SL108", "SL109", "SL110", "SL111"]
 from repro_torch.core import run_fleet_schemes, run_schemes
 ftl = FleetProgram(num_nodes=2, ssd_capacity=4 << 20, ssd="ftl", stream_len=96,
                    device="cpu").run(batch)

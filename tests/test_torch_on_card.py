@@ -23,6 +23,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax, tree_from_params
 from repro_torch.optim import AdamWConfig, init_state, linear_warmup_cosine
+from repro_torch.analysis import sanitizing
 from repro_torch.core import FleetProgram
 from repro_torch.core.random_factor import stream_stats_batch_np
 from repro_torch.core.trace import _score_shards_kernel
@@ -37,7 +38,7 @@ from repro_torch.kernels.stream_rf import ref as rf_ref
 from repro_torch.launch.serve import serve
 from repro_torch.service import BurstBufferService, FaultInjector, poisson_arrivals, scripted
 from repro_torch.testing.service import ReshardCountingService, same_service_result
-from repro_torch.testing import stream_rows
+from repro_torch.testing import golden, stream_rows
 from repro_torch.testing.golden import fleet_result_to_dict
 from repro_torch.testing.traces import golden_trace, sweep_trace
 
@@ -369,6 +370,22 @@ def test_ftl_sweep_card_equals_cpu(card, workload):
                     assert g[k] == pytest.approx(v, rel=1e-9, abs=0), (scheme, k)
                 else:
                     assert g[k] == v, (scheme, k)
+
+
+def test_golden_fixture_sanitized_on_card(card):
+    """One golden fixture's configuration through FleetProgram on the card
+    under sanitizing(): every field equal to the unsanitized card run, and
+    within the fixture's device_tolerance."""
+
+    payload = golden.load_fixture(golden.fixture_path("ssdup+", "mixed-burst", "range-offset"))
+    batch = golden_trace("mixed-burst")
+    kw = dict(num_nodes=golden.FIXTURE_NODES, schemes=("ssdup+",), policy="range-offset",
+              ssd_capacity=payload["key"]["ssd_capacity"], device=card)
+    plain = FleetProgram(**kw).run(batch)["ssdup+"]
+    with sanitizing():
+        checked = FleetProgram(**kw).run(batch)["ssdup+"]
+    assert fleet_result_to_dict(checked) == fleet_result_to_dict(plain)
+    assert golden.check_fixture(payload, checked, tolerances=payload["device_tolerance"]) == []
 
 
 SERVICE_FAULTS = {

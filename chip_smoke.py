@@ -124,8 +124,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    depth 8, moonshot-v1-16b-a3b and internvl2-26b (seeded patch
    embeddings) at depth 4 and whisper-tiny whole (seeded frames, its
    448-token text context) for 3 steps at batch 4 x 2048, and
-   zamba2-2.7b whole at 1 x 2048 with gradient compression (one row a
-   group of six layers) for 2 steps; each with ``save_async`` mid-run
+   zamba2-2.7b at 36 of its 54 layers at 1 x 2048 with gradient
+   compression (one row a group of six layers) for 2 steps; each with ``save_async`` mid-run
    and ``save_blocking`` at the end through ``Checkpointer`` ->
    ``TieredCheckpointStore``.  Gates: finite loss and grad_norm every
    step; the restored parameters bit-equal to the live ones; each
@@ -137,11 +137,26 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    in serve).  Then falcon-mamba-7b at depth 8 one step with
    ``mamba_fused_proj`` from the weights and batch of its first step
    above (losses within 2e-3; each peak); train steps in f32 on the card and on the CPU from weights
-   drawn on the card (``TRAIN_F32_TOL``; qwen3-1.7b at depth 2 and
-   whisper whole for 3 steps, moonshot and internvl2 at depth 1 and
-   zamba2 at 6 over 64 tokens for 2; MoE routes that differ counted); and
+   drawn on the card (``TRAIN_F32_TOL``; whisper whole for 3 steps,
+   qwen3-1.7b at depth 2, moonshot and internvl2 at depth 1 and zamba2
+   at 6 over 32 tokens for 2; MoE routes that differ counted); and
    the training CLI: the tiny preset for 40 steps with a checkpoint every
    20, then resumed to 60 (exit 0, the resume line, the loss falling);
+9. mesh    — the sharded model path on a one-rank NCCL process group and
+   a (1, 1) ``("data", "model")`` DeviceMesh: qwen3-1.7b at its published
+   width and 4 layers, one train step, one prefill (``flash_attention``
+   through ``local_map``, launches counted and read just after) and 3
+   decode steps with DTensor parameters, AdamW state, batch and cache,
+   each against the same steps unsharded (``MESH_TOL``), and a
+   checkpoint restored through ``restore_latest(shardings=)``;
+   dryrun  — ``python -m repro_torch.launch.dryrun`` on the card, rank 0
+   of the production mesh in a fake world of 512 ranks at full width and
+   depth: qwen3-1.7b x {train_4k, prefill_32k, decode_32k} on the
+   single-pod mesh, its train_4k on the multi-pod mesh and
+   moonshot-v1-16b-a3b's train_4k (``[dryrun]`` lines: FLOPs, link
+   bytes, roofline terms, peak, the local step's wall), each record's
+   FLOPs and collectives equal to the same cell's ``--device cpu`` record
+   (run in subprocesses beside the card's);
 10. model-kernel timings — ``flash_attention`` and ``ssm_scan`` at the
    shapes the serve path gives them, beside their bounds, plain versions
    and (attention) ``scaled_dot_product_attention``; attention in bf16
@@ -208,6 +223,9 @@ from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models.convert import params_from_jax, tree_from_params  # noqa: E402
 from repro_torch.optim import AdamWConfig, CompressionConfig, init_state  # noqa: E402
 from repro_torch.optim import linear_warmup_cosine  # noqa: E402
+from repro_torch.distributed.sharding import placements_for  # noqa: E402
+from repro_torch.models import stacked_param_axes  # noqa: E402
+from repro_torch.testing.sharded import sharded_steps  # noqa: E402
 from repro_torch.testing import golden  # noqa: E402
 from repro_torch.testing.stream_rows import KINDS, stream_rows  # noqa: E402
 from repro_torch.testing.traces import golden_trace, sweep_trace, trace_fingerprint  # noqa: E402
@@ -2144,11 +2162,13 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
 # AdamW's f32 moments take 12 bytes a parameter.  moonshot and internvl2 run
 # at depth 4: at 8 and 10 layers they fit (64.2 and 64.9 GiB), but their
 # 10 GB checkpoints took 100 s and 77 s of the script's time; zamba2-2.7b
-# runs whole at batch 1 (a batch-4 prefill alone takes 13.7 s) with
-# compression on, whose rows are its groups of six layers.
+# runs at batch 1 (a batch-4 prefill alone takes 13.7 s) with compression
+# on, whose rows are its groups of six layers, at 36 of its 54 layers (six
+# groups; whole, its phase took 79 s, cut for the mesh and dry-run phases'
+# time).
 TRAIN_RUNS = (("qwen3-1.7b", None, 6, 3, 4, False), ("falcon-mamba-7b", 8, 3, 2, 4, False),
               ("moonshot-v1-16b-a3b", 4, 3, 2, 4, False), ("internvl2-26b", 4, 3, 2, 4, False),
-              ("whisper-tiny", None, 3, 2, 4, False), ("zamba2-2.7b", None, 2, 1, 1, True))
+              ("whisper-tiny", None, 3, 2, 4, False), ("zamba2-2.7b", 36, 2, 1, 1, True))
 TRAIN_SEQ_OF = {"whisper-tiny": 448}
 TRAIN_PROFILED_STEP = 1  # after the first step's warm-up, before any save
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2048, 3e-4
@@ -2167,10 +2187,11 @@ TRAIN_F32_TOL = {"atol": 1e-5, "rtol": 1e-4, "outlier_share": 1e-4,
 # alone are 0.67 and 1.14 B parameters), and zamba2's six Mamba-2 layers
 # over 256 tokens 158 s, so the MoE and the VLM run at depth 1 (the VLM's
 # 288 tokens are its 256 patches and 32 text tokens), zamba2's one group of
-# six over 64 tokens, and the three of them 2 steps
-TRAIN_VS_CPU = (("qwen3-1.7b", 2, 256, 3), ("moonshot-v1-16b-a3b", 1, 256, 2),
+# six over 32 tokens (64 until the mesh and dry-run phases needed the
+# time), and each 2 steps but whisper's 3
+TRAIN_VS_CPU = (("qwen3-1.7b", 2, 256, 2), ("moonshot-v1-16b-a3b", 1, 256, 2),
                 ("internvl2-26b", 1, 288, 2), ("whisper-tiny", None, 256, 3),
-                ("zamba2-2.7b", 6, 64, 2))
+                ("zamba2-2.7b", 6, 32, 2))
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -2232,7 +2253,7 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
     reference's layout, the async checkpoint to a copy taken at its step,
     and the restored parameters' kernel prefill (``batch_n`` prompts) to the
     live ones' bit for bit and to the torch prefill within the serve
-    tolerance (argmax agreement for zamba2's 54 layers, as in serve)."""
+    tolerance (argmax agreement for zamba2's 36 layers, as in serve)."""
 
     cfg = train_config(arch, layers)
     if cfg.remat != "block" or cfg.dtype != "bfloat16":
@@ -2336,7 +2357,9 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
 
     # the restored checkpoint served: kernel prefill of the restored and the
     # live parameters bit-equal, the torch prefill within the serve tolerance
-    # (cut-depth runs and the archs gated in serve) or agreeing on the argmax
+    # (the archs gated in serve, and runs cut to under half their depth:
+    # falcon-mamba-7b at 8 of 64 layers) or agreeing on the argmax
+    # (zamba2-2.7b at 36 of 54 layers reached 0.117 in bf16, as at 54)
     kernel_model = get_model(dataclasses.replace(cfg, attention_impl="kernel",
                                                  ssm_impl="kernel"), dev)
     g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
@@ -2354,7 +2377,7 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
              f"checkpoint, expected {2 * per_prefill} (two kernel prefills)")
     if not torch.equal(live, back):
         fail(f"{arch}: the restored parameters' kernel prefill differs from the live ones'")
-    if arch in BF16_GATED or cfg.n_layers < get_config(arch).n_layers:
+    if arch in BF16_GATED or 2 * cfg.n_layers < get_config(arch).n_layers:
         serve_err = _held(f"{arch} restored: torch vs kernel prefill", plain[:, -1],
                           back[:, -1], BF16_TOL, BF16_TOL)
     else:
@@ -2722,6 +2745,194 @@ def phase_train_cli() -> dict:
     return out
 
 
+# the mesh phase: qwen3-1.7b at its published width, depth cut for time, on a
+# one-rank NCCL mesh; the dry-run phase's cells, each at full width and depth
+MESH_ARCH, MESH_DEPTH, MESH_DECODE = "qwen3-1.7b", 4, 3
+# (atol, rtol) a sharded step on the (1, 1) mesh may differ by from the
+# plain one: nothing is split there, but the cross entropy over a split
+# vocab (max, sum of exp, the label's logit) and the split-KV decode
+# softmax (exp(s - max) / sum) round otherwise than torch's log_softmax and
+# softmax in f32.  Adam's first step moves each weight by about lr whatever
+# its gradient's size, so a small gradient whose sign rounds otherwise moves
+# a weight by 2 lr (and its bf16 rounding by up to an ulp more: 4 lr); the
+# prefill's bf16 k/v cache and the logits carry that, held at the serve
+# tolerance (0.1, and torch.testing's bf16 rtol); loss and grad_norm are f32
+MESH_TOL = {"loss": (0.0, 1e-3), "grad_norm": (0.0, 1e-3), "params": (4 * TRAIN_LR, 1.6e-2),
+            "cache": (0.1, 1.6e-2), "prefill_logits": (0.1, 1.6e-2),
+            "decode_logits": (0.1, 1.6e-2)}
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("qwen3-1.7b", "prefill_32k", "single"),
+                ("qwen3-1.7b", "decode_32k", "single"), ("qwen3-1.7b", "train_4k", "multi"),
+                ("moonshot-v1-16b-a3b", "train_4k", "single"))
+# the dry-run CLI calls that run them, one subprocess each (a subprocess
+# takes about 10 s to start on the card's host): qwen3's three cells on the
+# single-pod mesh (its applicable cells) in one
+DRYRUN_CALLS = (("qwen3-1.7b", None, "single"), ("qwen3-1.7b", "train_4k", "multi"),
+                ("moonshot-v1-16b-a3b", "train_4k", "single"))
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _outside(want: torch.Tensor, got: torch.Tensor, atol: float, rtol: float) -> float:
+    """The largest excess of |got - want| over atol + rtol |want| (<= 0:
+    within)."""
+
+    want, got = want.float(), got.float()
+    return float(((got - want).abs() - atol - rtol * want.abs()).max())
+
+
+def phase_mesh(dev: torch.device) -> dict:
+    """The sharded model path on a one-rank NCCL process group and a (1, 1)
+    ``("data", "model")`` mesh on the card: qwen3-1.7b at its published
+    width and ``MESH_DEPTH`` layers, one train step (batch 4 x 2048), one
+    prefill and ``MESH_DECODE`` greedy decode steps with DTensor
+    parameters, optimizer state, batch and cache, each held against the
+    same steps unsharded on the card (``MESH_TOL``, every measured max abs
+    difference printed); the prefill's ``flash_attention`` launches go
+    through ``local_map`` and are counted; a checkpoint of the plain
+    weights restored through ``restore_latest(shardings=)``, every leaf
+    bit-equal.  The group is destroyed before the next phase."""
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_DEPTH)
+    tree = tree_from_params(get_model(cfg, dev).init_params(SERVE_SEED))
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=g,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    kw = dict(device=dev, decode_steps=MESH_DECODE, lr=TRAIN_LR)
+    plain = sharded_steps(cfg, tree, batch, None, **kw)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        fa_ops.reset_launches()
+        sharded = sharded_steps(cfg, tree, batch, mesh, **kw)
+        launches = fa_ops.launches["flash_attention"]
+        ckpt = Checkpointer(TieredCheckpointStore(root))
+        ckpt.save_blocking(0, {"params": tree})
+        shardings = {"params": {
+            k: ({kk: (mesh, placements_for(tree[k][kk].shape, ax, mesh)) for kk, ax in v.items()}
+                if isinstance(v, dict) else (mesh, placements_for(tree[k].shape, v, mesh)))
+            for k, v in stacked_param_axes(cfg).items()}}
+        _, restored = ckpt.restore_latest(shardings=shardings)
+        ckpt.close()
+        for path, leaf in _leaves(restored["params"]):
+            want = dict(_leaves(tree))[path]
+            if not torch.equal(_bits(leaf.to_local()), _bits(want)):
+                fail(f"[mesh] restored leaf {path} differs")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    pairs = {
+        "loss": [(plain["loss"], sharded["loss"])],
+        "grad_norm": [(plain["grad_norm"], sharded["grad_norm"])],
+        "params": [(plain["params"][k], sharded["params"][k]) for k in plain["params"]],
+        "cache": [(plain["cache"][k], sharded["cache"][k]) for k in plain["cache"]],
+        "prefill_logits": [(plain["prefill_logits"], sharded["prefill_logits"])],
+        "decode_logits": list(zip(plain["decode_logits"], sharded["decode_logits"],
+                                  strict=True)),
+    }
+    diffs = {k: max(_max_diff(a, b) for a, b in v) for k, v in pairs.items()}
+    out = {"arch": MESH_ARCH, "layers": MESH_DEPTH, "max_abs_diff": diffs,
+           "bit_equal": {k: diffs[k] == 0.0 for k in diffs}, "launches": launches,
+           "restored_leaves": len(_leaves(tree)), "seconds": time.perf_counter() - t0}
+    log(f"[mesh] {json.dumps(out)}")
+    for k, (atol, rtol) in MESH_TOL.items():
+        excess = max(_outside(a, b, atol, rtol) for a, b in pairs[k])
+        if excess > 0:
+            fail(f"[mesh] {k}: sharded differs from plain by {diffs[k]}, past atol {atol} "
+                 f"+ rtol {rtol} by {excess}")
+    if launches != MESH_DEPTH:
+        fail(f"[mesh] the sharded prefill launched flash_attention {launches} times, "
+             f"not once a layer ({MESH_DEPTH})")
+    return out
+
+
+def _dryrun_cmd(arch: str, cell: str | None, mesh: str, device: str, out_dir: str) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", device,
+            "--arch", arch, *(["--cell", cell] if cell else []), "--mesh", mesh,
+            "--out", out_dir, "--force"]
+
+
+@contextlib.contextmanager
+def cpu_dryruns():
+    """``DRYRUN_CALLS`` with ``--device cpu`` (``FakeTensorMode``: no card,
+    no allocation), one subprocess a call, started on entry so that they
+    run beside ``phase_mesh`` and the card's cells; yields (their out dir,
+    the processes); on exit every one still running is killed and the
+    records removed."""
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = [subprocess.Popen(_dryrun_cmd(*c, "cpu", os.path.join(root, "cpu")), env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in DRYRUN_CALLS]
+    try:
+        yield root, procs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_dryrun(root: str, cpu: list) -> dict:
+    """``python -m repro_torch.launch.dryrun`` over ``DRYRUN_CELLS``: rank
+    0's program of the production mesh in a fake world of 512 ranks, at
+    full width and depth, on the card (real allocations, each cell's peak),
+    the ``DRYRUN_CALLS`` one after another; each card record's FLOPs,
+    collective counts and collective bytes must equal the record of the
+    same cell run on the CPU by ``cpu`` (:func:`cpu_dryruns`).  Any failure
+    or out-of-memory exits nonzero."""
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    records = {}
+    for call in DRYRUN_CALLS:
+        proc = subprocess.run(_dryrun_cmd(*call, "cuda", os.path.join(root, "cuda")),
+                              env=env, capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            if line.startswith("[dryrun] OK") or line.startswith("[dryrun] FAIL"):
+                log(f"{line} device=cuda")
+        if proc.returncode != 0:
+            fail(f"[dryrun] {call} on the card exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+    t_card = time.perf_counter() - t0
+    for call, p in zip(DRYRUN_CALLS, cpu):
+        _, stderr = p.communicate(timeout=600)
+        if p.returncode != 0:
+            fail(f"[dryrun] {call} on the cpu exited {p.returncode}: {stderr[-3000:]}")
+    for arch, cell, mesh in DRYRUN_CELLS:
+        name = f"{arch}__{cell}__{mesh}.json"
+        with open(os.path.join(root, "cuda", name)) as f:
+            card = json.load(f)
+        with open(os.path.join(root, "cpu", name)) as f:
+            host = json.load(f)
+        for key in ("flops_per_device", "link_bytes_per_device"):
+            if card["roofline"][key] != host["roofline"][key]:
+                fail(f"[dryrun] {name}: {key} {card['roofline'][key]} on the card, "
+                     f"{host['roofline'][key]} on the cpu")
+        for key in ("counts", "bytes_by_kind"):
+            if card["collectives"][key] != host["collectives"][key]:
+                fail(f"[dryrun] {name}: collective {key} {card['collectives'][key]} on "
+                     f"the card, {host['collectives'][key]} on the cpu")
+        records[name] = {"roofline": card["roofline"], "collectives": card["collectives"],
+                         "memory": card["memory"], "step_s": card["step_s"],
+                         "cpu_bytes_per_device": host["roofline"]["bytes_per_device"],
+                         "model_flops": card["model_flops"],
+                         "useful_flops_ratio": card["useful_flops_ratio"]}
+        log(f"[dryrun] {name}: {json.dumps(records[name])}")
+    log(f"[dryrun] the dry-run phase took {time.perf_counter() - t0:.1f} s "
+        f"(the card's cells {t_card:.1f} s)")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2805,7 +3016,13 @@ def main() -> int:
         log(f"[train-card-vs-cpu] {run[0]}: took {time.perf_counter() - t_run:.1f} s")
     phase_train_cli()
     log(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s")
+    with cpu_dryruns() as (dry_root, dry_cpu):
+        mesh = phase_mesh(dev)
+        model_launches["flash_attention"] = model_launches.get("flash_attention", 0) + \
+            mesh["launches"]
+        phase_dryrun(dry_root, dry_cpu)
     kernels += model_kernel_timings(dev, model_worst, model_launches, clock_mhz * 1e6)
+    kernels[-4]["launches_mesh"] = mesh["launches"]  # the flash_attention (hd 128) row
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

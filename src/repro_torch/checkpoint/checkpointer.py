@@ -93,10 +93,14 @@ class Checkpointer:
             self._inflight = None
 
     # -- restore path -------------------------------------------------------
-    def restore_latest(self, like: Tree | None = None) -> tuple[int, Tree] | None:
+    def restore_latest(self, like: Tree | None = None,
+                       shardings: Tree | None = None) -> tuple[int, Tree] | None:
         """Load the newest committed checkpoint as CPU tensors; with
         ``like`` (a tree of tensors, meta ones included), each leaf of
-        ``like``'s structure cast to its dtype and reshaped to its shape."""
+        ``like``'s structure cast to its dtype and reshaped to its shape;
+        with ``shardings`` (a tree of ``(mesh, placements)``, elastic
+        reshard), each leaf a DTensor of which every rank keeps its own
+        slice (the reference's ``jax.device_put``)."""
 
         step = self.store.latest_step()
         if step is None:
@@ -109,6 +113,17 @@ class Checkpointer:
                 return v.to(l.dtype).reshape(l.shape)
 
             tree = cast(like, tree)
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            def place(s, v):
+                if isinstance(v, dict):
+                    return {k: place(s[k], v[k]) for k in v}
+                mesh, placements = s
+                return distribute_tensor(v.to(mesh.device_type), mesh, placements,
+                                         src_data_rank=None)
+
+            tree = place(shardings, tree)
         return step, tree
 
     def close(self) -> None:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, smoke_variant
+from .base import SHAPE_CELLS, ModelConfig, ShapeCell, applicable_cells, smoke_variant
 
 ARCHITECTURES = ["qwen3-1.7b", "stablelm-3b", "starcoder2-3b", "phi4-mini-3.8b",
                  "moonshot-v1-16b-a3b", "grok-1-314b", "internvl2-26b", "whisper-tiny",
@@ -34,5 +34,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
-__all__ = ["ARCHITECTURES", "ModelConfig", "get_config", "get_smoke_config",
-           "smoke_variant"]
+__all__ = ["ARCHITECTURES", "ModelConfig", "SHAPE_CELLS", "ShapeCell", "applicable_cells",
+           "get_config", "get_smoke_config", "smoke_variant"]

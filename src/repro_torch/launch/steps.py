@@ -3,7 +3,10 @@
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import constrain
+from ..models.layers import on_local_shards
 from ..models.registry import ModelApi
 from ..optim import AdamWConfig, CompressionConfig, apply_updates, compress_tree
 
@@ -47,9 +50,9 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig | None = None,
             raise ValueError(f"batch {b} not divisible by microbatch {mb}")
         a = b // mb
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         for i in range(a):
-            loss = model.loss_fn(params, {k: v[i * mb: (i + 1) * mb] for k, v in batch.items()})
+            loss = model.loss_fn(params, {k: _microbatch(v, i, a) for k, v in batch.items()})
             for s, g in zip(gsum, torch.autograd.grad(loss, leaves)):
                 s.add_(g.float())
             loss_sum = loss_sum + loss.detach()
@@ -65,6 +68,21 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig | None = None,
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
+
+
+def _microbatch(t: torch.Tensor, i: int, a: int) -> torch.Tensor:
+    """The ``i``-th of ``a`` microbatches of ``t``'s rows: a contiguous
+    slice; of a DTensor, each rank's ``i``-th slice of its own rows, so a
+    microbatch keeps the batch's split (a contiguous global slice would
+    gather the batch).  Either way the ``a`` microbatches are the batch,
+    and their summed gradients the same."""
+
+    if not isinstance(t, DTensor):
+        n = t.shape[0] // a
+        return t[i * n: (i + 1) * n]
+    pl = list(t.placements)
+    return on_local_shards(lambda x: x[i * (x.shape[0] // a): (i + 1) * (x.shape[0] // a)],
+                           pl, (pl,), t)
 
 
 def _compress_as_reference(grads: dict, cfg: CompressionConfig, every: int = 1) -> dict:
@@ -106,7 +124,10 @@ def make_prefill_step(model: ModelApi):
 def make_serve_step(model: ModelApi):
     def serve_step(params, cache, tokens: torch.Tensor, pos: int):
         logits, new_cache = model.decode_step(params, cache, tokens, pos)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1)  # greedy
+        # greedy; a vocab split over the mesh is gathered first: DTensor's
+        # argmax over a split dim reads scalars back in some torch versions
+        # (which a fake tensor cannot) and gathers in others
+        next_tok = torch.argmax(constrain(logits[:, -1, :], "batch", None), dim=-1)
         return next_tok[:, None], logits, new_cache
 
     return serve_step

@@ -24,7 +24,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
-from .params import EncDecParams, leaf_name
+from .params import EncDecParams, leaf_name, map_specs
 
 
 def _sinusoid(length: int, dim: int) -> np.ndarray:
@@ -56,43 +56,60 @@ def _sinusoid_at(pos: int, dim: int, device: torch.device) -> torch.Tensor:
 # parameters
 # ---------------------------------------------------------------------------
 
-def _attn_shapes(nl: int, cfg: ModelConfig, prefix: str) -> dict:
+def _attn_specs(nl: int, cfg: ModelConfig, prefix: str) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     return {
-        f"{prefix}wq": (nl, D, H, hd),
-        f"{prefix}wk": (nl, D, KV, hd),
-        f"{prefix}wv": (nl, D, KV, hd),
-        f"{prefix}wo": (nl, H, hd, D),
+        f"{prefix}wq": ((nl, D, H, hd), ("layers", "embed", "heads", None)),
+        f"{prefix}wk": ((nl, D, KV, hd), ("layers", "embed", "kv_heads", None)),
+        f"{prefix}wv": ((nl, D, KV, hd), ("layers", "embed", "kv_heads", None)),
+        f"{prefix}wo": ((nl, H, hd, D), ("layers", "heads", None, "embed")),
     }
+
+
+def _specs(cfg: ModelConfig) -> dict:
+    V, D, F = cfg.padded_vocab, cfg.d_model, cfg.d_ff
+    ne, nd = cfg.encoder_layers, cfg.n_layers
+
+    def norms(nl, *names):
+        return {k: ((nl, D), ("layers", None)) for k in names}
+
+    enc = {
+        **norms(ne, "attn_norm", "attn_norm_b", "mlp_norm", "mlp_norm_b"),
+        "w1": ((ne, D, F), ("layers", "embed", "mlp")),
+        "w2": ((ne, F, D), ("layers", "mlp", "embed")),
+        **_attn_specs(ne, cfg, ""),
+    }
+    dec = {
+        **norms(nd, "self_norm", "self_norm_b", "cross_norm", "cross_norm_b", "mlp_norm",
+                "mlp_norm_b"),
+        "w1": ((nd, D, F), ("layers", "embed", "mlp")),
+        "w2": ((nd, F, D), ("layers", "mlp", "embed")),
+        **_attn_specs(nd, cfg, "self_"),
+        **_attn_specs(nd, cfg, "cross_"),
+    }
+    top = {k: ((D,), (None,)) for k in ("enc_final_norm", "enc_final_norm_b",
+                                         "dec_final_norm", "dec_final_norm_b")}
+    return {"tok_emb": ((V, D), ("vocab", "embed")), **top, "encoder": enc, "decoder": dec}
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Leaf -> shape, as the reference's ``param_specs`` without the
     sharding axes."""
 
-    V, D, F = cfg.padded_vocab, cfg.d_model, cfg.d_ff
-    ne, nd = cfg.encoder_layers, cfg.n_layers
-    enc = {
-        "attn_norm": (ne, D), "attn_norm_b": (ne, D),
-        "mlp_norm": (ne, D), "mlp_norm_b": (ne, D),
-        "w1": (ne, D, F), "w2": (ne, F, D),
-        **_attn_shapes(ne, cfg, ""),
-    }
-    dec = {
-        "self_norm": (nd, D), "self_norm_b": (nd, D),
-        "cross_norm": (nd, D), "cross_norm_b": (nd, D),
-        "mlp_norm": (nd, D), "mlp_norm_b": (nd, D),
-        "w1": (nd, D, F), "w2": (nd, F, D),
-        **_attn_shapes(nd, cfg, "self_"),
-        **_attn_shapes(nd, cfg, "cross_"),
-    }
-    return {
-        "tok_emb": (V, D),
-        "enc_final_norm": (D,), "enc_final_norm_b": (D,),
-        "dec_final_norm": (D,), "dec_final_norm_b": (D,),
-        "encoder": enc,
-        "decoder": dec,
-    }
+    return map_specs(_specs(cfg), lambda shape, axes: shape)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Leaf -> logical axes, nested as :func:`param_specs`; a per-layer
+    leaf's are the reference's without the leading ``"layers"``."""
+
+    return map_specs(_specs(cfg), lambda shape, axes: axes, {"encoder": 1, "decoder": 1})
+
+
+def abstract_params(cfg: ModelConfig) -> EncDecParams:
+    """The parameters as meta tensors, in their storage dtypes."""
+
+    return empty_params(cfg, "meta")
 
 
 def empty_params(cfg: ModelConfig, device, dtype_of_leaf=None) -> EncDecParams:
@@ -239,3 +256,9 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     cross = (cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim_)
     return {key: torch.empty(shape, dtype=dt, device="meta")
             for key, shape in (("k", kv), ("v", kv), ("cross_k", cross), ("cross_v", cross))}
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    kv = ("layers", "cache_batch", "cache_seq", "kv_heads", None)
+    cross = ("layers", "cache_batch", "frames", "kv_heads", None)
+    return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}

@@ -24,7 +24,7 @@ import torch
 from ..configs.base import ModelConfig
 from . import layers as L
 from .layers import SSMState
-from .params import HybridParams, leaf_name
+from .params import HybridParams, leaf_name, map_specs
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -36,10 +36,7 @@ def n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.shared_attn_every
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    """Leaf -> shape, as the reference's ``param_specs`` without the
-    sharding axes."""
-
+def _specs(cfg: ModelConfig) -> dict:
     V, D, F = cfg.padded_vocab, cfg.d_model, cfg.d_ff
     di, n, K = cfg.d_inner, cfg.ssm_state, cfg.d_conv
     nh = cfg.mamba_heads
@@ -47,29 +44,50 @@ def param_specs(cfg: ModelConfig) -> dict:
     g, e = n_groups(cfg), cfg.shared_attn_every
     conv_ch = di + 2 * n  # Mamba-2 convolves x, B and C together
     mamba = {
-        "norm": (g, e, D),
-        "in_proj": (g, e, D, 2 * di + 2 * n + nh),
-        "conv_w": (g, e, K, conv_ch),
-        "conv_b": (g, e, conv_ch),
-        "dt_bias": (g, e, nh),
-        "A_log": (g, e, nh),
-        "D": (g, e, nh),
-        "out_norm": (g, e, di),
-        "out_proj": (g, e, di, D),
+        "norm": ((g, e, D), ("layers", None, None)),
+        "in_proj": ((g, e, D, 2 * di + 2 * n + nh), ("layers", None, "embed", "inner")),
+        "conv_w": ((g, e, K, conv_ch), ("layers", None, None, "inner")),
+        "conv_b": ((g, e, conv_ch), ("layers", None, "inner")),
+        "dt_bias": ((g, e, nh), ("layers", None, None)),
+        "A_log": ((g, e, nh), ("layers", None, None)),
+        "D": ((g, e, nh), ("layers", None, None)),
+        "out_norm": ((g, e, di), ("layers", None, "inner")),
+        "out_proj": ((g, e, di, D), ("layers", None, "inner", "embed")),
     }
     shared = {
-        "attn_norm": (D,),
-        "mlp_norm": (D,),
-        "wq": (D, H, hd),
-        "wk": (D, KV, hd),
-        "wv": (D, KV, hd),
-        "wo": (H, hd, D),
-        "w1": (D, F),
-        "w3": (D, F),
-        "w2": (F, D),
+        "attn_norm": ((D,), (None,)),
+        "mlp_norm": ((D,), (None,)),
+        "wq": ((D, H, hd), ("embed", "heads", None)),
+        "wk": ((D, KV, hd), ("embed", "kv_heads", None)),
+        "wv": ((D, KV, hd), ("embed", "kv_heads", None)),
+        "wo": ((H, hd, D), ("heads", None, "embed")),
+        "w1": ((D, F), ("embed", "mlp")),
+        "w3": ((D, F), ("embed", "mlp")),
+        "w2": ((F, D), ("mlp", "embed")),
     }
-    return {"tok_emb": (V, D), "final_norm": (D,), "lm_head": (D, V), "mamba": mamba,
-            "shared": shared}
+    return {"tok_emb": ((V, D), ("vocab", "embed")), "final_norm": ((D,), (None,)),
+            "lm_head": ((D, V), ("embed", "vocab")), "mamba": mamba, "shared": shared}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Leaf -> shape, as the reference's ``param_specs`` without the
+    sharding axes."""
+
+    return map_specs(_specs(cfg), lambda shape, axes: shape)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Leaf -> logical axes, nested as :func:`param_specs`; a Mamba leaf's
+    are the reference's without the leading ``("layers", None)`` of its
+    (G, E) stacking (the port keeps one module a layer)."""
+
+    return map_specs(_specs(cfg), lambda shape, axes: axes, {"mamba": 2})
+
+
+def abstract_params(cfg: ModelConfig) -> HybridParams:
+    """The parameters as meta tensors, in their storage dtypes."""
+
+    return empty_params(cfg, "meta")
 
 
 def empty_params(cfg: ModelConfig, device, dtype_of_leaf=None) -> HybridParams:
@@ -188,3 +206,10 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
         "attn_k": torch.empty(kv, dtype=dt, device="meta"),
         "attn_v": torch.empty(kv, dtype=dt, device="meta"),
     }
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    return {"conv": ("layers", None, "cache_batch", None, "inner"),
+            "h": ("layers", None, "cache_batch", "inner", None),
+            "attn_k": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
+            "attn_v": ("layers", "cache_batch", "cache_seq", "kv_heads", None)}

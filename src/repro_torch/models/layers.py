@@ -13,8 +13,18 @@ scan; MoE router logits are f32.  Prefill attention goes to the
 kernel under ``"kernel"``; under ``"torch"`` they run the layer's own
 direct/query-chunked attention and chunked scan.  Cross attention, the MoE
 dispatch and the Mamba-2 scan have no kernel in either package: they run
-the same torch code under both.  On one card there is nothing to shard, so
-the reference's sharding annotations have no counterpart here.
+the same torch code under both.
+
+Activations carry the reference's sharding annotations at its sites
+(:func:`~repro_torch.distributed.sharding.constrain`: q/k/v and the
+attention output, the decode cache, the MLP hidden, the MoE dispatch and
+expert tensors, the Mamba ``xz``/``xi``/``delta``/output, the embedding and
+the logits); without a mesh, or on plain tensors, they return their input.
+Under a mesh, with DTensor parameters and inputs, what DTensor has no
+usable rule for runs on each rank's shards (:func:`on_local_shards`): the
+attention core (the kernel is a custom op), the 2-d products (laid out as
+FSDP x TP), the MoE routing, tables and experts, the embedding lookup, the
+split-KV decode attention and the cross entropy over a split vocab.
 
 The reference's perf levers are here too: ``matmul_weight_dtype`` casts a
 weight right before its matmul (:func:`wcast`, at the reference's sites
@@ -38,9 +48,13 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (constrain, grad_placements, placements_for,
+                                     replicated_like)
 from ..kernels.flash_attention.ops import flash_attention_bshd
 from ..kernels.ssm_scan.ops import ssm_scan_op
 
@@ -108,13 +122,72 @@ def checkpointed(fn, *args, **kw):
     return fn(*args, **kw)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def on_local_shards(fn, out_placements, in_placements, *args):
+    """``fn`` over each rank's local shards of the DTensors ``args``
+    (``local_map``): inputs redistributed to ``in_placements`` (one
+    sequence a tensor, ``None`` for another argument), the output laid out
+    by ``out_placements`` (a list; a tuple of lists for several outputs),
+    the inputs' gradients by ``grad_placements``.  The outputs and the
+    gradients leave contiguous: DTensor reshapes a local shard by a view,
+    which a transposed shard refuses."""
+
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+
+    def local(*xs):
+        xs = [_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor) and x.requires_grad
+              else x for x in xs]
+        out = fn(*xs)
+        return tuple(o.contiguous() for o in out) if isinstance(out, tuple) else out.contiguous()
+
+    return local_map(local, out_placements=out_placements, in_placements=in_placements,
+                     in_grad_placements=grad_placements(in_placements), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def _matmul(x: torch.Tensor, w: torch.Tensor, axes: int = 1) -> torch.Tensor:
     """Contract ``x``'s last ``axes`` axes with ``w``'s first ones, in x's
     dtype: (..., *in) x (*in, *out) -> (..., *out)."""
 
     lead, inner = x.shape[: x.dim() - axes], w.shape[:axes]
-    out = x.reshape(-1, inner.numel()) @ w.reshape(inner.numel(), -1)
+    x2, w2 = x.reshape(-1, inner.numel()), w.reshape(inner.numel(), -1)
+    out = _sharded_mm(x2, w2) if isinstance(x2, DTensor) else x2 @ w2
     return out.reshape(*lead, *w.shape[axes:])
+
+
+def _sharded_mm(x, w):
+    """``x @ w`` of 2-d DTensors on each rank's shards (``local_map``), laid
+    out as FSDP x TP lays a product out, mesh dim by mesh dim: rows of x
+    split -> w gathered there (FSDP), rows split out; the contraction split
+    in either -> both split on it, a partial sum out; columns of w split ->
+    columns split out.  DTensor's own strategy for mm may split the
+    columns over a mesh dim that does not divide the dims they unflatten
+    to (24 heads over 16 ranks), which no view can then take back, and its
+    backward would split the weight's gradient so."""
+
+    mesh = x.device_mesh
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    x_pl, w_pl, out_pl = [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if px == Shard(0):
+            x_pl.append(px), w_pl.append(Replicate()), out_pl.append(Shard(0))
+        elif px == Shard(1) or pw == Shard(0):
+            x_pl.append(Shard(1)), w_pl.append(Shard(0)), out_pl.append(Partial())
+        else:
+            x_pl.append(Replicate()), w_pl.append(pw), out_pl.append(pw)
+    return on_local_shards(torch.matmul, out_pl, (tuple(x_pl), tuple(w_pl)), x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -154,10 +227,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """x: (..., seq, heads, head_dim); positions broadcastable to (..., seq).
     Rotates by halves, in f32."""
 
-    freqs = _rope_frequencies_on(x.shape[-1], theta, x.device)
+    if x.device.type == "cpu":
+        # made at each call: a cached table would be a real tensor that a
+        # CPU dry run's FakeTensorMode refuses, or a fake one cached under it
+        freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta), dtype=torch.float32)
+    else:
+        freqs = _rope_frequencies_on(x.shape[-1], theta, x.device)
     angles = positions[..., :, None].float() * freqs  # (..., S, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]  # broadcast over heads
-    sin = torch.sin(angles)[..., :, None, :]
+    cos = replicated_like(x, torch.cos(angles)[..., :, None, :])  # broadcast over heads
+    sin = replicated_like(x, torch.sin(angles)[..., :, None, :])
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
@@ -232,6 +310,9 @@ def _attend_chunked(q, k, v, n_rep, scale, causal, smax=torch.float32):
 
 def _project_qkv(cfg: ModelConfig, w, x: torch.Tensor):
     q, k, v = (_matmul(x, wcast(cfg, t, x.dtype)) for t in (w.wq, w.wk, w.wv))
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     if cfg.qk_norm:
         q = rms_norm(q, w.q_norm, cfg.norm_eps)
         k = rms_norm(k, w.k_norm, cfg.norm_eps)
@@ -262,9 +343,9 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
     smax = getattr(torch, cfg.softmax_dtype)
 
     if cross_kv is not None:
-        o = _attend_direct(_matmul(x, wcast(cfg, w.wq, x.dtype)), *cross_kv, n_rep, scale,
-                           causal=False)
-        return _matmul(o, wcast(cfg, w.wo, x.dtype), axes=2), None
+        q = constrain(_matmul(x, wcast(cfg, w.wq, x.dtype)), "batch", None, "heads", None)
+        o = _attend_direct(q, *cross_kv, n_rep, scale, causal=False)
+        return constrain(_matmul(o, wcast(cfg, w.wo, x.dtype), axes=2), "batch", None, None), None
 
     q, k, v = _project_qkv(cfg, w, x)
     if cfg.rope_theta > 0:
@@ -272,29 +353,134 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        sq = x.shape[1]
-        if cfg.attention_impl == "kernel":
-            o = flash_attention_bshd(q, k, v, causal=causal, scale=scale)
-        elif sq <= ATTN_DIRECT_MAX_SEQ or sq % min(ATTN_Q_CHUNK, sq):
-            o = _attend_direct(q, k, v, n_rep, scale, causal, smax=smax)
+        if isinstance(q, DTensor):
+            o = _self_attention_on_local_shards(cfg, q, k, v, causal, scale)
         else:
-            o = _attend_chunked(q, k, v, n_rep, scale, causal, smax=smax)
+            o = _self_attention(cfg, q, k, v, causal, scale, n_rep)
         new_cache = (k, v)
     else:
         if x.shape[1] != 1:
             raise ValueError("decode path expects one new token")
         ck, cv = kv_cache
         pos = int(cache_position)
-        ck[:, pos: pos + 1] = k.to(ck.dtype)
-        cv[:, pos: pos + 1] = v.to(cv.dtype)
-        s = _scaled_scores(q, ck, n_rep, scale)  # (B,H,1,S_ctx)
-        valid = torch.arange(ck.shape[1], device=x.device)[None, None, None, :] <= pos
-        s = torch.where(valid, s, NEG_INF)
-        p = _softmax_lastdim(s, smax).to(q.dtype)
-        o = _gqa_out(p, cv, n_rep)
+        if isinstance(ck, DTensor):
+            o, ck, cv = _decode_on_local_shards(cfg, q, k, v, ck, cv, pos, scale)
+        else:
+            ck[:, pos: pos + 1] = k.to(ck.dtype)
+            cv[:, pos: pos + 1] = v.to(cv.dtype)
+            s = _scaled_scores(q, ck, n_rep, scale)  # (B,H,1,S_ctx)
+            valid = torch.arange(ck.shape[1], device=x.device)[None, None, None, :] <= pos
+            s = torch.where(valid, s, NEG_INF)
+            p = _softmax_lastdim(s, smax).to(q.dtype)
+            o = _gqa_out(p, cv, n_rep)
         new_cache = (ck, cv)
 
-    return _matmul(o, wcast(cfg, w.wo, x.dtype), axes=2), new_cache
+    return constrain(_matmul(o, wcast(cfg, w.wo, x.dtype), axes=2), "batch", None, None), new_cache
+
+
+def _self_attention(cfg: ModelConfig, q, k, v, causal: bool, scale: float, n_rep: int):
+    """Prefill / train attention core: the kernel under ``"kernel"``, else
+    the direct or query-chunked torch path."""
+
+    sq = q.shape[1]
+    smax = getattr(torch, cfg.softmax_dtype)
+    if cfg.attention_impl == "kernel":
+        return flash_attention_bshd(q, k, v, causal=causal, scale=scale)
+    if sq <= ATTN_DIRECT_MAX_SEQ or sq % min(ATTN_Q_CHUNK, sq):
+        return _attend_direct(q, k, v, n_rep, scale, causal, smax=smax)
+    return _attend_chunked(q, k, v, n_rep, scale, causal, smax=smax)
+
+
+def _self_attention_on_local_shards(cfg: ModelConfig, q, k, v, causal: bool, scale: float):
+    """:func:`_self_attention` on each rank's shards (``local_map``):
+    attention is independent over batch rows and heads, so a rank attends
+    its rows with its q heads.  The kernel is a custom op with no DTensor
+    sharding rule, and DTensor's search for a strategy of the torch path's
+    5-d einsums does not end on a 3-d mesh.  Where the q heads are split
+    over a mesh dim that the kv heads are not (fewer kv heads than ranks),
+    a rank takes the kv heads its q heads read, and attends as MHA."""
+
+    mesh = q.device_mesh
+    q_pl = placements_for(q.shape, ("batch", None, "heads", None), mesh)
+    kv_pl = placements_for(k.shape, ("batch", None, "kv_heads", None), mesh)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    head_dims = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    select = [i for i in head_dims if kv_pl[i] != Shard(2)]
+    if select and select != head_dims:
+        raise NotImplementedError(f"q heads on mesh dims {head_dims}, kv heads on "
+                                  f"{[i for i in head_dims if i not in select]} only")
+
+    def core(q, k, v):
+        if not select:
+            return _self_attention(cfg, q, k, v, causal, scale, n_rep)
+        block = 0
+        for i in select:  # the rank's block of q heads, in mesh order
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+        heads = block * q.shape[2] + torch.arange(q.shape[2], device=q.device)
+        idx = heads // n_rep
+        return _self_attention(cfg, q, k.index_select(2, idx), v.index_select(2, idx),
+                               causal, scale, 1)
+
+    return on_local_shards(core, list(q_pl), (q_pl, kv_pl, kv_pl), q, k, v)
+
+
+def _decode_on_local_shards(cfg: ModelConfig, q, k, v, ck, cv, pos: int, scale: float):
+    """One decode step of attention against a cache whose sequence is split
+    over the mesh (``cache_seq``; flash-decoding's split-KV scheme), each
+    rank on its own shards (``local_map``): the rank that holds position
+    ``pos`` writes the new k/v into its shard in place; every rank scores
+    the token's heads against its slice of the sequence; the softmax takes
+    the max and the sum over all slices (``Partial("max")``, then
+    ``Partial("sum")``); each rank's share of ``P V`` is summed.  The
+    probabilities are the unsharded path's, ``exp(s - max) / sum``, cast to
+    q's dtype before ``P V``.  DTensor's search for a strategy of the
+    scores' 5-d einsum does not end on a 3-d mesh, hence the local maps.
+    Returns (out (B,1,H,hd), ck, cv)."""
+
+    mesh = ck.device_mesh
+    ck = constrain(ck, "batch", "cache_seq", None, None)
+    cv = constrain(cv, "batch", "cache_seq", None, None)
+    c_pl = tuple(ck.placements)
+    seq_dims = [i for i, p in enumerate(c_pl) if p == Shard(1)]
+    # the token's k/v and q: batch split as the cache's, heads whole
+    row_pl = [Shard(0) if p == Shard(0) else Replicate() for p in c_pl]
+    s_l = ck.to_local().shape[1]
+    block = 0
+    for i in seq_dims:  # the rank's block of the sequence, in mesh order
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    first = block * s_l
+    if first <= pos < first + s_l:
+        for cache, new in ((ck, k), (cv, v)):
+            cache.to_local()[:, pos - first: pos - first + 1] = \
+                new.to(cache.dtype).redistribute(mesh, row_pl).to_local()
+    else:  # every rank takes part in the redistributions
+        for new in (k, v):
+            new.redistribute(mesh, row_pl)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    smax = getattr(torch, cfg.softmax_dtype)
+
+    def scores(q, ck):
+        s = _scaled_scores(q, ck, n_rep, scale)  # (B,H,1,S_l)
+        valid = first + torch.arange(ck.shape[1], device=ck.device) <= pos
+        return torch.where(valid[None, None, None, :], s, NEG_INF)
+
+    def exps(q, ck, m):
+        return torch.exp((scores(q, ck).float() - m).to(smax))
+
+    def reduced(op):
+        return [Partial(op) if i in seq_dims else p for i, p in enumerate(row_pl)]
+
+    q = q.redistribute(mesh, row_pl)
+    m = on_local_shards(lambda q, ck: scores(q, ck).float().amax(-1, keepdim=True),
+                        reduced("max"), (row_pl, c_pl), q, ck).redistribute(mesh, row_pl)
+    denom = on_local_shards(
+        lambda q, ck, m: torch.sum(exps(q, ck, m).float(), dim=-1, keepdim=True),
+        reduced("sum"), (row_pl, c_pl, row_pl), q, ck, m).redistribute(mesh, row_pl)
+    o = on_local_shards(
+        lambda q, ck, cv, m, denom: _gqa_out((exps(q, ck, m) / denom.to(smax)).to(q.dtype),
+                                             cv, n_rep),
+        reduced("sum"), (row_pl, c_pl, c_pl, row_pl, row_pl), q, ck, cv, m, denom)
+    return constrain(o, "batch", None, "heads", None), ck, cv
 
 
 # ---------------------------------------------------------------------------
@@ -302,12 +488,12 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mlp(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
-    h = _matmul(x, wcast(cfg, w.w1, x.dtype))
+    h = constrain(_matmul(x, wcast(cfg, w.w1, x.dtype)), "batch", None, "mlp")
     if cfg.swiglu:
-        h = F.silu(h) * _matmul(x, wcast(cfg, w.w3, x.dtype))
+        h = F.silu(h) * constrain(_matmul(x, wcast(cfg, w.w3, x.dtype)), "batch", None, "mlp")
     else:
         h = F.gelu(h, approximate="tanh")
-    return _matmul(h, wcast(cfg, w.w2, x.dtype))
+    return constrain(_matmul(h, wcast(cfg, w.w2, x.dtype)), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +519,22 @@ def moe_routing(cfg: ModelConfig, w, x: torch.Tensor):
         raise ValueError(f"seq {s} not divisible by moe group {g}")
     cap = max(math.ceil(g * k / e * cfg.capacity_factor), 1)
     # f32 logits from the operands' values, as preferred_element_type=f32
-    logits = x.reshape(b, s // g, g, d).float() @ wcast(cfg, w.router, torch.float32)
+    xg, router = x.reshape(b, s // g, g, d).float(), wcast(cfg, w.router, torch.float32)
+    # DTensor's own strategy for this product gathers the whole batch
+    route = functools.partial(_route, k=k)
+    if isinstance(xg, DTensor):
+        # each token routes alone, so a rank routes its batch rows; the
+        # sort's backward scatters into a plain tensor in some torch versions
+        logits = _matmul(xg, router)
+        pl = [Shard(0) if p == Shard(0) else Replicate() for p in logits.placements]
+        return (*on_local_shards(route, (pl, pl, pl), (pl,), logits), cap)
+    return (*route(xg @ router), cap)
+
+
+def _route(logits: torch.Tensor, k: int):
+    """(gate_vals, gate_idx, slot) of router logits (B, NG, g, E) f32."""
+
+    b, ng, g, e = logits.shape
     probs = torch.softmax(logits, dim=-1)
     # top-k with ties to the lower index (jax.lax.top_k's order): a stable sort
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -341,10 +542,10 @@ def moe_routing(cfg: ModelConfig, w, x: torch.Tensor):
     gate_vals = gate_vals / (torch.sum(gate_vals, dim=-1, keepdim=True) + 1e-9)
     # exclusive count of earlier choices of the same expert, over the
     # group's (token, rank) pairs in token-major order
-    onehot = F.one_hot(gate_idx, e).reshape(b, s // g, g * k, e)
-    earlier = (torch.cumsum(onehot, dim=2) - onehot).reshape(b, s // g, g, k, e)
+    onehot = F.one_hot(gate_idx, e).reshape(b, ng, g * k, e)
+    earlier = (torch.cumsum(onehot, dim=2) - onehot).reshape(b, ng, g, k, e)
     slot = torch.gather(earlier, -1, gate_idx[..., None])[..., 0]
-    return gate_vals, gate_idx, slot, cap
+    return gate_vals, gate_idx, slot
 
 
 def moe_mlp(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
@@ -357,28 +558,82 @@ def moe_mlp(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
     its ``C`` slots whether they are filled or not."""
 
     b, s, d = x.shape
-    e = cfg.n_experts
     gate_vals, gate_idx, slot, cap = moe_routing(cfg, w, x)
     g = slot.shape[2]
-    ddt = getattr(torch, cfg.moe_dispatch_dtype)
+    tables = functools.partial(_dispatch_combine, e=cfg.n_experts, cap=cap,
+                               ddt=getattr(torch, cfg.moe_dispatch_dtype))
+    if isinstance(slot, DTensor):
+        # per token too: a rank builds its rows' tables, and DTensor's
+        # strategy for the einsums cannot differ between meshes on the card
+        # and on the CPU
+        pl = list(slot.placements)
+        dispatch, combine = on_local_shards(tables, (pl, pl), (pl, pl, pl),
+                                            gate_vals, gate_idx, slot)
+    else:
+        dispatch, combine = tables(gate_vals, gate_idx, slot)
+    dispatch = constrain(dispatch, "batch", None, None, "experts", None)
+
+    xg = x.reshape(b, s // g, g, d)
+    weights = (w.w1, w.w3 if cfg.swiglu else None, w.w2)
+    if isinstance(x, DTensor):
+        out = _experts_on_local_shards(cfg, xg, dispatch, combine, weights)
+    else:
+        out = _experts(cfg, xg, dispatch, combine, *weights)
+    return constrain(out.reshape(b, s, d), "batch", None, None)
+
+
+def _dispatch_combine(gate_vals, gate_idx, slot, *, e: int, cap: int, ddt: torch.dtype):
+    """The one-hot dispatch and the gate-weighted combine tables (B, NG, g,
+    E, C) in ``ddt`` of a routing."""
+
     kept = F.one_hot(gate_idx, e).float() * (slot < cap)[..., None]  # (B,NG,g,k,E)
     # a dropped choice's slot is cap, a class cut off below
     cap_slot = F.one_hot(torch.clamp(slot, max=cap), cap + 1)[..., :cap].float()
     dispatch = torch.einsum("bngke,bngkc->bngec", kept, cap_slot).to(ddt)
     combine = torch.einsum("bngke,bngkc->bngec", kept * gate_vals[..., None],
                            cap_slot).to(ddt)
+    return dispatch, combine
 
-    dt = x.dtype
-    xg = x.reshape(b, s // g, g, d)
-    ein = torch.einsum("bngd,bngec->bnecd", xg, dispatch.to(dt))
-    h = torch.einsum("bnecd,edf->bnecf", ein, wcast(cfg, w.w1, dt))
+
+def _experts(cfg: ModelConfig, xg, dispatch, combine, w1, w3, w2) -> torch.Tensor:
+    """Dispatch -> expert FFNs -> combine, (B, NG, g, D) -> (B, NG, g, D)."""
+
+    dt = xg.dtype
+    ein = constrain(torch.einsum("bngd,bngec->bnecd", xg, dispatch.to(dt)),
+                    "batch", None, "experts", None, None)
+    h = constrain(torch.einsum("bnecd,edf->bnecf", ein, wcast(cfg, w1, dt)),
+                  "batch", None, "experts", None, "mlp")
     if cfg.swiglu:
-        h = F.silu(h) * torch.einsum("bnecd,edf->bnecf", ein, wcast(cfg, w.w3, dt))
+        h = F.silu(h) * constrain(torch.einsum("bnecd,edf->bnecf", ein, wcast(cfg, w3, dt)),
+                                  "batch", None, "experts", None, "mlp")
     else:
         h = F.gelu(h, approximate="tanh")
-    eout = torch.einsum("bnecf,efd->bnecd", h, wcast(cfg, w.w2, dt))
-    out = torch.einsum("bnecd,bngec->bngd", eout, combine.to(dt))
-    return out.reshape(b, s, d)
+    eout = constrain(torch.einsum("bnecf,efd->bnecd", h, wcast(cfg, w2, dt)),
+                     "batch", None, "experts", None, None)
+    return torch.einsum("bnecd,bngec->bngd", eout, combine.to(dt))
+
+
+def _experts_on_local_shards(cfg: ModelConfig, xg, dispatch, combine, weights):
+    """:func:`_experts` on each rank's shards (``local_map``): a rank's
+    batch rows against its experts (EP: experts on ``model``) or its slice
+    of every expert's hidden dim (experts that do not divide the axis:
+    ``mlp`` on ``model``), the weights' embed dim gathered first (FSDP),
+    the output a partial sum over the model axis.  DTensor's einsum
+    decomposes into views that its backward applies to gradient shards
+    laid out otherwise (aten.view of a non-contiguous local shard), so the
+    products run on plain local tensors."""
+
+    mesh = xg.device_mesh
+    x_pl = placements_for(xg.shape, ("batch", None, None, None), mesh)
+    d_pl = placements_for(dispatch.shape, ("batch", None, None, "experts", None), mesh)
+    w1, w3, w2 = weights
+    w_in = placements_for(w1.shape, ("experts", None, "mlp"), mesh)
+    w_out = placements_for(w2.shape, ("experts", "mlp", None), mesh)
+    out_pl = [xp if isinstance(xp, Shard) else Partial() if isinstance(wp, Shard) else xp
+              for xp, wp in zip(x_pl, w_in)]
+    in_pl = (x_pl, d_pl, d_pl, w_in, w_in if w3 is not None else None, w_out)
+    return on_local_shards(functools.partial(_experts, cfg), out_pl, in_pl,
+                           xg, dispatch, combine, w1, w3, w2)
 
 
 # ---------------------------------------------------------------------------
@@ -533,9 +788,11 @@ def mamba1_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
     b, s, _ = x.shape
     di, n, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
 
-    xi, z = _matmul(x, w.in_proj).chunk(2, dim=-1)  # (B,S,DI) each
+    xz = constrain(_matmul(x, w.in_proj), "batch", None, "inner")
+    xi, z = xz.chunk(2, dim=-1)  # (B,S,DI) each
     prepend = state.conv if state is not None else None
     xi, conv_tail = _causal_conv1d(xi, w.conv_w, w.conv_b, prepend)
+    xi = constrain(xi, "batch", None, "inner")
     h0 = (state.h.float() if state is not None
           else torch.zeros(b, di, n, dtype=torch.float32, device=x.device))
 
@@ -544,6 +801,7 @@ def mamba1_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
     else:
         delta_r, B_ssm, C_ssm = _matmul(xi, w.x_proj).split([dr, n, n], dim=-1)
         delta = F.softplus(_matmul(delta_r, w.dt_proj).float() + w.dt_bias.float())  # (B,S,DI)
+        delta = constrain(delta, "batch", None, "inner")
         A = -torch.exp(w.A_log.float())  # (DI,N)
         B32, C32 = B_ssm.float().contiguous(), C_ssm.float().contiguous()
         if s == 1:
@@ -558,7 +816,8 @@ def mamba1_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
             y, h_last = _ssm_scan(delta, B32, C32, xi, h0, min(cfg.scan_chunk, s), A_full=A)
     y = y + xi * w.D[None, None, :].to(x.dtype)
     y = y * F.silu(z)
-    return _matmul(y, w.out_proj), SSMState(conv=conv_tail, h=h_last)
+    return constrain(_matmul(y, w.out_proj), "batch", None, None), SSMState(conv=conv_tail,
+                                                                          h=h_last)
 
 
 # ---------------------------------------------------------------------------
@@ -576,9 +835,11 @@ def mamba2_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
     di, n, p = cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim
 
     z, xBC, delta_in = _matmul(x, w.in_proj).split([di, di + 2 * n, cfg.mamba_heads], dim=-1)
+    z = constrain(z, "batch", None, "inner")
     prepend = state.conv if state is not None else None
     xBC, conv_tail = _causal_conv1d(xBC, w.conv_w, w.conv_b, prepend)
     xi, B_ssm, C_ssm = xBC.split([di, n, n], dim=-1)
+    xi = constrain(xi, "batch", None, "inner")
 
     delta = F.softplus(delta_in.float() + w.dt_bias.float())  # (B,S,H)
     A = -torch.exp(w.A_log.float())  # (H,)
@@ -592,7 +853,8 @@ def mamba2_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
                               headdim=p)
     y = y + xi * w.D.repeat_interleave(p)[None, None, :].to(x.dtype)
     y = rms_norm(y * F.silu(z), w.out_norm, cfg.norm_eps)
-    return _matmul(y, w.out_proj), SSMState(conv=conv_tail, h=h_last)
+    return constrain(_matmul(y, w.out_proj), "batch", None, None), SSMState(conv=conv_tail,
+                                                                          h=h_last)
 
 
 # ---------------------------------------------------------------------------
@@ -609,24 +871,96 @@ def embed_tokens(cfg: ModelConfig, emb: torch.Tensor, tokens: torch.Tensor) -> t
     values exactly."""
 
     if not cfg.embed_onehot:
-        return emb[tokens].to(dtype_of(cfg))
+        rows = _lookup_on_local_shards(emb, tokens) if isinstance(emb, DTensor) else emb[tokens]
+        return constrain(rows.to(dtype_of(cfg)), "batch", None, None)
     dt = emb.dtype if emb.dtype.itemsize > 1 else dtype_of(cfg)
     onehot = torch.zeros(*tokens.shape, emb.shape[0], dtype=dt, device=emb.device)
     onehot.scatter_(-1, tokens[..., None].long(), 1)
-    return (onehot @ emb.to(dt)).to(dtype_of(cfg))
+    return constrain((onehot @ emb.to(dt)).to(dtype_of(cfg)), "batch", None, None)
+
+
+def _lookup_on_local_shards(emb, tokens):
+    """``emb[tokens]`` on each rank's shards (``local_map``): the table's
+    embed dim gathered first (FSDP), each rank's tokens looked up in its
+    vocab rows, zeros for tokens whose row another rank holds, the rows a
+    partial sum over the vocab's mesh dims (one rank adds each token's row,
+    the others zeros, so the sum is the row exactly).  DTensor's index op
+    has no strategy for a table split on its embed dim, and its index_put
+    (the backward) fails on a split table in some torch versions."""
+
+    mesh = emb.device_mesh
+    t_pl = placements_for(emb.shape, ("vocab", None), mesh)
+    tok_pl = placements_for(tokens.shape, ("batch", None), mesh)
+    vocab_dims = [i for i, p in enumerate(t_pl) if p == Shard(0)]
+    if any(tok_pl[i] != Replicate() for i in vocab_dims):
+        raise NotImplementedError("batch and vocab split over one mesh dim")
+    out_pl = [Partial() if i in vocab_dims else p for i, p in enumerate(tok_pl)]
+
+    def lookup(table, toks):
+        block = 0
+        for i in vocab_dims:  # the rank's block of vocab rows, in mesh order
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+        local = toks - block * table.shape[0]
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = table[torch.where(inside, local, 0)]
+        return torch.where(inside[..., None], rows, 0)
+
+    return on_local_shards(lookup, out_pl, (t_pl, tok_pl), emb, tokens)
 
 
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    head = params.tok_emb.T if cfg.tie_embeddings else params.lm_head
-    return x @ wcast(cfg, head, x.dtype)
+    head = wcast(cfg, params.tok_emb.T if cfg.tie_embeddings else params.lm_head, x.dtype)
+    # DTensor's own strategy for a batch-split x times a head split on both
+    # dims replicates both and computes every rank's logits
+    logits = _matmul(x, head) if isinstance(x, DTensor) else x @ head
+    return constrain(logits, "batch", None, "vocab")
 
 
 def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean NLL in f32 over all positions of the padded vocabulary; labels
     < 0 are masked (padding)."""
 
-    lp = torch.log_softmax(logits.float(), dim=-1)
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
-    nll = -torch.gather(lp, -1, safe[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        nll = _nll_on_local_shards(logits, safe)
+    else:
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(lp, -1, safe[..., None])[..., 0]
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+
+
+def _nll_on_local_shards(logits, labels):
+    """``-log_softmax(logits)[labels]`` (f32) with the vocab left split over
+    the mesh, each rank on its own slice (``local_map``): the max over the
+    vocab (``Partial("max")``), the sum of ``exp(x - max)``
+    (``Partial("sum")``), and the label's logit from the rank that holds it
+    (the others add 0).  DTensor's log_softmax gathers the whole vocab
+    first: (16, 4096, 151,936) f32, 37 GiB a device for qwen3-1.7b's
+    train_4k on the 16 x 16 mesh."""
+
+    mesh = logits.device_mesh
+    l_pl = placements_for(logits.shape, ("batch", None, "vocab"), mesh)
+    vocab_dims = [i for i, p in enumerate(l_pl) if p == Shard(2)]
+    row_pl = [Shard(0) if p == Shard(0) else Replicate() for p in l_pl]  # batch split only
+
+    def reduced(op):
+        return [Partial(op) if i in vocab_dims else p for i, p in enumerate(row_pl)]
+
+    def picked(x, lab):
+        block = 0
+        for i in vocab_dims:  # the rank's block of the vocab, in mesh order
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+        local = lab - block * x.shape[-1]
+        inside = (local >= 0) & (local < x.shape[-1])
+        got = torch.gather(x.float(), -1, torch.where(inside, local, 0)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    logits = logits.redistribute(mesh, l_pl)
+    m = on_local_shards(lambda x: x.float().amax(-1, keepdim=True), reduced("max"), (l_pl,),
+                        logits).redistribute(mesh, row_pl).detach()
+    total = on_local_shards(
+        lambda x, m: torch.sum(torch.exp(x.float() - m), dim=-1, keepdim=True),
+        reduced("sum"), (l_pl, row_pl), logits, m).redistribute(mesh, row_pl)
+    label = on_local_shards(picked, reduced("sum"), (l_pl, row_pl), logits, labels)
+    return (m + torch.log(total))[..., 0] - label.redistribute(mesh, row_pl)

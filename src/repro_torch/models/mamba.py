@@ -16,29 +16,47 @@ import torch
 from ..configs.base import ModelConfig
 from . import layers as L
 from .layers import SSMState
-from .params import ModelParams, leaf_name
+from .params import ModelParams, leaf_name, map_specs
+
+
+def _specs(cfg: ModelConfig) -> dict:
+    V, D = cfg.padded_vocab, cfg.d_model
+    di, n, dr, K = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_, cfg.d_conv
+    nl = cfg.n_layers
+    layers = {
+        "norm": ((nl, D), ("layers", None)),
+        "in_proj": ((nl, D, 2 * di), ("layers", "embed", "inner")),
+        "conv_w": ((nl, K, di), ("layers", None, "inner")),
+        "conv_b": ((nl, di), ("layers", "inner")),
+        "x_proj": ((nl, di, dr + 2 * n), ("layers", "inner", None)),
+        "dt_proj": ((nl, dr, di), ("layers", None, "inner")),
+        "dt_bias": ((nl, di), ("layers", "inner")),
+        "A_log": ((nl, di, n), ("layers", "inner", None)),
+        "D": ((nl, di), ("layers", "inner")),
+        "out_proj": ((nl, di, D), ("layers", "inner", "embed")),
+    }
+    return {"tok_emb": ((V, D), ("vocab", "embed")), "final_norm": ((D,), (None,)),
+            "lm_head": ((D, V), ("embed", "vocab")), "layers": layers}
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Leaf -> shape, as the reference's ``param_specs`` without the
     sharding axes."""
 
-    V, D = cfg.padded_vocab, cfg.d_model
-    di, n, dr, K = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_, cfg.d_conv
-    nl = cfg.n_layers
-    layers = {
-        "norm": (nl, D),
-        "in_proj": (nl, D, 2 * di),
-        "conv_w": (nl, K, di),
-        "conv_b": (nl, di),
-        "x_proj": (nl, di, dr + 2 * n),
-        "dt_proj": (nl, dr, di),
-        "dt_bias": (nl, di),
-        "A_log": (nl, di, n),
-        "D": (nl, di),
-        "out_proj": (nl, di, D),
-    }
-    return {"tok_emb": (V, D), "final_norm": (D,), "lm_head": (D, V), "layers": layers}
+    return map_specs(_specs(cfg), lambda shape, axes: shape)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Leaf -> logical axes, nested as :func:`param_specs`; a per-layer
+    leaf's are the reference's without the leading ``"layers"``."""
+
+    return map_specs(_specs(cfg), lambda shape, axes: axes, {"layers": 1})
+
+
+def abstract_params(cfg: ModelConfig) -> ModelParams:
+    """The parameters as meta tensors, in their storage dtypes."""
+
+    return empty_params(cfg, "meta")
 
 
 def empty_params(cfg: ModelConfig, device, dtype_of_leaf=None) -> ModelParams:
@@ -127,3 +145,8 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
         "conv": torch.empty((nl, batch, K - 1, di), dtype=L.dtype_of(cfg), device="meta"),
         "h": torch.empty((nl, batch, di, n), dtype=torch.float32, device="meta"),
     }
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    return {"conv": ("layers", "cache_batch", None, "inner"),
+            "h": ("layers", "cache_batch", "inner", None)}

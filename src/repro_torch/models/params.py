@@ -79,6 +79,21 @@ class HybridParams(Leaves):
         self.shared = Leaves(specs["shared"], dtype_of_leaf, device)
 
 
+def map_specs(specs: dict, fn: Callable, stacks: dict[str, int] | None = None) -> dict:
+    """``fn(shape, axes)`` of every ``(shape, axes)`` leaf of a nested spec
+    table; under a key of ``stacks``, each leaf's first ``stacks[key]``
+    dims (its stacking on depth) dropped first."""
+
+    out = {}
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            n = (stacks or {}).get(k, 0)
+            out[k] = {kk: fn(sh[n:], ax[n:]) for kk, (sh, ax) in v.items()}
+        else:
+            out[k] = fn(*v)
+    return out
+
+
 def leaf_name(qualified: str) -> str:
     """``layers.3.wq`` -> ``wq``."""
 

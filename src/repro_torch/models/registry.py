@@ -27,11 +27,14 @@ class ModelApi:
     device: torch.device
     param_specs: Callable  # () -> leaf shapes
     init_params: Callable  # (seed or torch.Generator) -> ModelParams on device
+    abstract_params: Callable  # () -> ModelParams of meta tensors
+    param_axes: Callable  # () -> leaf logical axes, nested as param_specs
     forward: Callable  # (params, tokens, **inputs) -> (hidden, None)
     loss_fn: Callable  # (params, batch) -> scalar
     prefill: Callable  # (params, batch) -> (logits, cache)
     decode_step: Callable  # (params, cache, tokens, pos) -> (logits, cache)
     abstract_cache: Callable  # (batch, seq) -> cache of meta tensors
+    cache_axes: Callable  # () -> cache logical axes
 
 
 def get_model(cfg: ModelConfig, device: "torch.device | str | None" = None) -> ModelApi:
@@ -55,6 +58,8 @@ def get_model(cfg: ModelConfig, device: "torch.device | str | None" = None) -> M
         device=dev,
         param_specs=lambda: mod.param_specs(cfg),
         init_params=init_params,
+        abstract_params=lambda: mod.abstract_params(cfg),
+        param_axes=lambda: mod.param_axes(cfg),
         # inputs: the VLM's patch_embeds, the encoder-decoder's frames
         forward=lambda params, tokens, **inputs: mod.forward(cfg, params, tokens, **inputs),
         loss_fn=lambda params, batch: mod.loss_fn(cfg, params, batch),
@@ -62,7 +67,26 @@ def get_model(cfg: ModelConfig, device: "torch.device | str | None" = None) -> M
         decode_step=lambda params, cache, tokens, pos: mod.decode_step(
             cfg, params, cache, tokens, pos),
         abstract_cache=lambda batch, seq: mod.abstract_cache(cfg, batch, seq),
+        cache_axes=lambda: mod.cache_axes(cfg),
     )
+
+
+def named_param_axes(cfg: ModelConfig, params) -> dict[str, tuple]:
+    """``params.named_parameters()`` name -> logical axes, from the family's
+    ``param_axes``: a top-level leaf's own, ``layers.3.wq`` its stack's
+    ``wq`` (the hybrid's ``layers.<i>`` its ``mamba`` table's,
+    ``shared.wq`` its ``shared`` table's)."""
+
+    axes = FAMILY_MODULES[cfg.family].param_axes(cfg)
+    out = {}
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if len(parts) == 1:
+            out[name] = axes[name]
+            continue
+        stack = "mamba" if cfg.family == "hybrid" and parts[0] == "layers" else parts[0]
+        out[name] = axes[stack][parts[-1]]
+    return out
 
 
 def frontend_inputs(cfg: ModelConfig, batch: int, seed: int,
@@ -108,3 +132,29 @@ def input_specs(cfg: ModelConfig, kind: str, batch: int, seq: int) -> dict:
     if cfg.family == "encdec" and kind != "decode":
         specs["frames"] = meta((batch, cfg.n_frames, cfg.d_model), layers.dtype_of(cfg))
     return specs
+
+
+_STACKED = {"layers": ("layers",), "encoder": ("layers",), "decoder": ("layers",),
+            "mamba": ("layers", None)}
+
+
+def stacked_param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes in the reference's layout (``tree_from_params``):
+    each per-layer leaf's with its stacking on depth in front, which are
+    the reference's ``param_axes``."""
+
+    return {k: ({kk: _STACKED[k] + ax for kk, ax in v.items()} if k in _STACKED else v)
+            for k, v in FAMILY_MODULES[cfg.family].param_axes(cfg).items()}
+
+
+def input_axes(cfg: ModelConfig, kind: str) -> dict:
+    """The logical axes of :func:`input_specs`' tensors."""
+
+    axes: dict = {"tokens": ("batch", None)}
+    if kind == "train":
+        axes["labels"] = ("batch", None)
+    if cfg.family == "vlm" and kind != "decode":
+        axes["patch_embeds"] = ("batch", None, None)
+    if cfg.family == "encdec" and kind != "decode":
+        axes["frames"] = ("batch", "frames", None)
+    return axes

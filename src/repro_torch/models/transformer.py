@@ -27,43 +27,69 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
-from .params import ModelParams, leaf_name
+from .params import ModelParams, leaf_name, map_specs
 
 
-def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+def _layer_specs(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], tuple]]:
+    """Per-layer leaf -> (shape stacked on L, the reference's logical axes)."""
+
     D, F = cfg.d_model, cfg.d_ff
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     nl = cfg.n_layers
     s = {
-        "attn_norm": (nl, D),
-        "mlp_norm": (nl, D),
-        "wq": (nl, D, H, hd),
-        "wk": (nl, D, KV, hd),
-        "wv": (nl, D, KV, hd),
-        "wo": (nl, H, hd, D),
+        "attn_norm": ((nl, D), ("layers", None)),
+        "mlp_norm": ((nl, D), ("layers", None)),
+        "wq": ((nl, D, H, hd), ("layers", "embed", "heads", None)),
+        "wk": ((nl, D, KV, hd), ("layers", "embed", "kv_heads", None)),
+        "wv": ((nl, D, KV, hd), ("layers", "embed", "kv_heads", None)),
+        "wo": ((nl, H, hd, D), ("layers", "heads", None, "embed")),
     }
     if cfg.qk_norm:
-        s["q_norm"] = (nl, hd)
-        s["k_norm"] = (nl, hd)
-    experts = (cfg.n_experts,) if cfg.family == "moe" else ()
-    if experts:
-        s["router"] = (nl, D, cfg.n_experts)
-    s["w1"] = (nl, *experts, D, F)
-    s["w2"] = (nl, *experts, F, D)
-    if cfg.swiglu:
-        s["w3"] = (nl, *experts, D, F)
+        s["q_norm"] = ((nl, hd), ("layers", None))
+        s["k_norm"] = ((nl, hd), ("layers", None))
+    if cfg.family == "moe":
+        E = cfg.n_experts
+        s["router"] = ((nl, D, E), ("layers", "embed", None))
+        s["w1"] = ((nl, E, D, F), ("layers", "experts", "embed", "mlp"))
+        s["w2"] = ((nl, E, F, D), ("layers", "experts", "mlp", "embed"))
+        if cfg.swiglu:
+            s["w3"] = ((nl, E, D, F), ("layers", "experts", "embed", "mlp"))
+    else:
+        s["w1"] = ((nl, D, F), ("layers", "embed", "mlp"))
+        s["w2"] = ((nl, F, D), ("layers", "mlp", "embed"))
+        if cfg.swiglu:
+            s["w3"] = ((nl, D, F), ("layers", "embed", "mlp"))
     return s
+
+
+def _specs(cfg: ModelConfig) -> dict:
+    V, D = cfg.padded_vocab, cfg.d_model
+    top = {"tok_emb": ((V, D), ("vocab", "embed")), "final_norm": ((D,), (None,)),
+           "layers": _layer_specs(cfg)}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = ((D, V), ("embed", "vocab"))
+    return top
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Leaf -> shape, as the reference's ``param_specs`` without the
     sharding axes."""
 
-    V, D = cfg.padded_vocab, cfg.d_model
-    top = {"tok_emb": (V, D), "final_norm": (D,), "layers": _layer_shapes(cfg)}
-    if not cfg.tie_embeddings:
-        top["lm_head"] = (D, V)
-    return top
+    return map_specs(_specs(cfg), lambda shape, axes: shape)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Leaf -> logical axes, nested as :func:`param_specs`; a per-layer
+    leaf's are the reference's without the leading ``"layers"`` (the port
+    keeps one module a layer)."""
+
+    return map_specs(_specs(cfg), lambda shape, axes: axes, {"layers": 1})
+
+
+def abstract_params(cfg: ModelConfig) -> ModelParams:
+    """The parameters as meta tensors, in their storage dtypes."""
+
+    return empty_params(cfg, "meta")
 
 
 def empty_params(cfg: ModelConfig, device, dtype_of_leaf=None) -> ModelParams:
@@ -111,6 +137,7 @@ def _embed_inputs(cfg: ModelConfig, params: ModelParams, tokens: torch.Tensor,
             raise ValueError("vlm family needs patch_embeds")
         # patches occupy the first P positions (the ViT frontend is a stub)
         x = torch.cat([patch_embeds.to(x.dtype), x[:, patch_embeds.shape[1]:]], dim=1)
+        x = L.constrain(x, "batch", None, None)
     return x
 
 
@@ -143,7 +170,9 @@ def prefill(cfg: ModelConfig, params: ModelParams, batch: dict):
 
     hidden, (k, v) = forward(cfg, params, batch["tokens"], batch.get("patch_embeds"),
                              collect_cache=True)
-    return L.lm_logits(cfg, params, hidden[:, -1:, :]), {"k": k, "v": v}
+    cache = {name: L.constrain(t, None, "batch", "cache_seq", None, None)
+             for name, t in (("k", k), ("v", v))}
+    return L.lm_logits(cfg, params, hidden[:, -1:, :]), cache
 
 
 def decode_step(cfg: ModelConfig, params: ModelParams, cache: dict,
@@ -166,3 +195,8 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:
     shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim_)
     return {key: torch.empty(shape, dtype=L.dtype_of(cfg), device="meta")
             for key in ("k", "v")}
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    ax = ("layers", "cache_batch", "cache_seq", "kv_heads", None)
+    return {"k": ax, "v": ax}

@@ -35,13 +35,29 @@ def _f32(x: float, device) -> torch.Tensor:
 
 
 def init_state(params: Tree) -> dict:
-    def zeros():
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in params.items()}
+    def zeros():  # a DTensor parameter's moments are DTensors laid out as it is
+        return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
 
     device = next(iter(params.values())).device
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def abstract_state(abstract_params: Tree) -> dict:
+    """:func:`init_state`'s shapes and dtypes, as meta tensors."""
+
+    def zeros():
+        return {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+                for k, p in abstract_params.items()}
+
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def state_axes(param_axes: dict) -> dict:
+    """Moments share the params' logical axes; step is replicated."""
+
+    return {"m": param_axes, "v": param_axes, "step": ()}
 
 
 def global_norm(tree: Tree) -> torch.Tensor:

@@ -5,6 +5,12 @@ quantize -> dequantize (the reference's scheme, on dicts of tensors).
     q, scales = encode(grad + error)
     error = (grad + error) - decode(q, scales)
 
+A row's scale is the max over all of its elements: on a DTensor whose
+row is split over the mesh (a dim after the first sharded), DTensor's
+max is a partial max that it all-reduces, so the scale is the whole
+row's; with every dim after the first whole on a rank (``Replicate`` on
+each mesh dim but those of the first dim), no collective is needed.
+
 With ``enabled=False`` ``compress_tree`` is the identity, so the train
 step has a single code path.
 """
@@ -71,5 +77,5 @@ def compress_tree(grads: Tree, error: Tree | None, cfg: CompressionConfig):
 
 
 def init_error(params: Tree) -> Tree:
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()}
+    # a DTensor leaf's error is a DTensor laid out as it is
+    return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}

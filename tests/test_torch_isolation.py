@@ -111,6 +111,14 @@ for arch in ("qwen3-1.7b", "stablelm-3b", "zamba2-2.7b", "falcon-mamba-7b",
              "moonshot-v1-16b-a3b", "grok-1-314b", "internvl2-26b", "whisper-tiny"):
     out = serve(get_smoke_config(arch), batch=2, prompt_len=8, gen=3, device="cpu")
     assert out["tokens"].shape == (2, 3)
+from repro_torch.distributed.sharding import spec_for
+from repro_torch.launch import dryrun, hillclimb, mesh, roofline
+class Mesh: shape = {"data": 16, "model": 16}
+assert spec_for((28, 2048, 6144), ("layers", "embed", "mlp"), Mesh()) == (None, "data", "model")
+rec = dryrun.run_cell("qwen3-1.7b", "decode_32k", "single", tempfile.mkdtemp(),
+                      override_cfg=get_smoke_config("qwen3-1.7b"), device="cpu")
+assert rec["status"] == "ok" and rec["collectives"]["counts"]
+assert roofline.collectives_from_records([("all-reduce", 40, 4)]).link_bytes == 60.0
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("ok", sorted(res))
@@ -270,6 +278,47 @@ def test_training_entry_points_need_cuda_by_default(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "falcon-mamba-7b", "--steps", "1"])
     train.main(["--device", "cpu", "--steps", "1", "--batch", "1", "--seq", "8"])
+
+
+def test_scan_covers_the_mesh_modules():
+    names = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
+    assert {"distributed/sharding.py", "launch/mesh.py", "launch/roofline.py",
+            "launch/dryrun.py", "launch/hillclimb.py", "testing/sharded.py",
+            "models/registry.py", "optim/adamw.py", "checkpoint/checkpointer.py"} <= names
+
+
+def test_only_the_mesh_module_imports_torch_testing_internal():
+    """The fake process group lives under ``torch.testing._internal``: one
+    import of it, so a torch upgrade that moves it breaks one line."""
+
+    importers = []
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(n.startswith("torch.testing._internal") for n in names):
+                importers.append(path.relative_to(REPO).as_posix())
+    assert importers == ["src/repro_torch/launch/mesh.py"]
+
+
+def test_dry_run_and_meshes_need_cuda_by_default(no_cuda, tmp_path):
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh(multi_pod=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--arch", "qwen3-1.7b", "--cell", "train_4k", "--mesh", "single",
+                     "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.run_cell("qwen3-1.7b", "train_4k", "single", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hillclimb.main(["--target", "qwen3_train"])
+    assert not list(tmp_path.iterdir())
 
 
 def test_chip_smoke_refuses_without_cuda():

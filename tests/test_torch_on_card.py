@@ -490,3 +490,77 @@ def test_bf16_checkpoint_round_trip_on_card(card, arch, tmp_path):
         back, _ = model.prefill(restored, {"tokens": toks})
     assert fa_ops.launches["flash_attention"] + ssm_ops.launches["ssm_scan"] == 2 * cfg.n_layers
     assert torch.equal(live, back)
+
+
+def _nccl_mesh_steps(arch: str) -> dict:
+    """Runs in a spawned child: the smoke config's sharded steps on a
+    one-rank NCCL (1, 1) mesh on the card and its plain steps, both whole on
+    the CPU, and the prefill's kernel launches on the mesh."""
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.testing.sharded import sharded_steps
+
+    cfg = get_smoke_config(arch)
+    dev = torch.device("cuda")
+    tree = tree_from_params(get_model(cfg, dev).init_params(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    plain = sharded_steps(cfg, tree, batch, None, device=dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        fa_ops.reset_launches()
+        sharded = sharded_steps(cfg, tree, batch, mesh, device=dev)
+        launches = fa_ops.launches["flash_attention"]
+    finally:
+        dist.destroy_process_group()
+    return {"plain": plain, "sharded": sharded, "launches": launches, "layers": cfg.n_layers}
+
+
+def test_sharded_steps_on_a_one_rank_nccl_mesh(card, tmp_path):
+    """The mesh phase of ``chip_smoke.py`` at smoke size: on a (1, 1) mesh
+    nothing is split, so the sharded train step, prefill (the kernel through
+    ``local_map``, once a layer) and decode steps give the plain steps'
+    results, but for the sharded cross entropy's and split-KV softmax's
+    f32 rounding: a gradient whose sign rounds otherwise moves its weight by
+    2 lr in Adam's first step (and an ulp more in bf16: 4 lr), the logits
+    within the serve tolerance."""
+
+    from repro_torch.testing.sharded import spawn_world
+
+    out = spawn_world(1, str(tmp_path), _nccl_mesh_steps, "qwen3-1.7b", group=False)[0]
+    plain, sharded = out["plain"], out["sharded"]
+    assert out["launches"] == out["layers"]
+    assert float(plain["loss"]) == pytest.approx(float(sharded["loss"]), rel=1e-3)
+    for k, v in plain["params"].items():
+        torch.testing.assert_close(sharded["params"][k], v, atol=4e-3, rtol=1.6e-2)  # lr 1e-3
+    torch.testing.assert_close(sharded["prefill_logits"], plain["prefill_logits"],
+                               atol=0.1, rtol=1.6e-2)
+    for a, b in zip(sharded["decode_logits"], plain["decode_logits"], strict=True):
+        torch.testing.assert_close(a, b, atol=0.1, rtol=1.6e-2)
+
+
+def _dry_run_both(out_dir: str) -> dict:
+    """Runs in a spawned child: a smoke-size dry-run cell on the card and
+    on the CPU."""
+
+    from repro_torch.launch import dryrun
+
+    cfg = get_smoke_config("qwen3-1.7b")
+    return {dev: dryrun.run_cell("qwen3-1.7b", "train_4k", "single", f"{out_dir}/{dev}",
+                                 override_cfg=cfg, device=dev) for dev in ("cuda", "cpu")}
+
+
+def test_dry_run_on_the_card_counts_what_the_cpu_counts(card, tmp_path):
+    from repro_torch.testing.sharded import spawn_world
+
+    recs = spawn_world(1, str(tmp_path), _dry_run_both, str(tmp_path), group=False)[0]
+    cuda, cpu = recs["cuda"], recs["cpu"]
+    assert cuda["memory"]["peak_allocated_bytes"] > cuda["memory"]["argument_bytes"] > 0
+    assert cuda["memory"]["argument_bytes"] == cpu["memory"]["argument_bytes"]
+    assert cuda["roofline"]["flops_per_device"] == cpu["roofline"]["flops_per_device"]
+    assert cuda["collectives"] == cpu["collectives"]
+    assert cuda["step_s"] > 0 and cpu["step_s"] is None

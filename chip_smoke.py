@@ -52,7 +52,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    steady calls, device busy share, GC relocations and write
    amplification): bytes conserved, card equal to the CPU, and within
    ``DEVICE_TOLERANCES`` of ``FleetSimulator(engine="batched",
-   ssd="ftl")`` on a trace cut to 100,000 requests (the host engine
+   ssd="ftl")`` on a trace cut to 50,000 requests (the host engine
    charges the FTL one request at a time);
    host    — ``FleetSimulator(engine="batched")`` over the sweep's 64 nodes
    x 4 schemes (scoring on the card, one launch a run) within
@@ -86,7 +86,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    moonshot-v1-16b-a3b (MoE: top 6 of 64 experts), internvl2-26b (VLM:
    256 seeded patch embeddings over the first positions) and whisper-tiny
    (encoder-decoder: 1,500 seeded frames, a 416-token decoder prompt) at
-   full width and depth (zamba2 at 18 of its 54 layers, three groups), and
+   full width and depth (zamba2 at 12 of its 54 layers, two groups), and
    grok-1-314b (MoE: top 2 of 8 experts at d_ff 32,768) at full width and
    depth 4, in bf16, batch 4, prompt 2048 (but
    whisper's), 32 greedy tokens, with launch counts reset just before and
@@ -104,7 +104,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    layers too) but where it does not fit (moonshot at 12 layers, internvl2
    at 24, grok at 1); and
    card against CPU: each model at full width, depth 2 (zamba2: one group
-   of six; whisper: all 4 + 4), one 256-token prompt (internvl2: 512),
+   of six; whisper: all 4 + 4; grok: 1), one 256-token prompt (internvl2: 512),
    f32 with TF32 off, the same weights on both, with the share of MoE
    routes that differ;
 8. levers  — qwen3-1.7b at its published config served unlevered, with
@@ -121,8 +121,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    backward pass) in bf16 with ``remat="block"``, from
    ``ShardedLoader(seed=0)``, AdamW at lr 3e-4, at full width:
    qwen3-1.7b at its published config for 6 steps, falcon-mamba-7b at
-   depth 8, moonshot-v1-16b-a3b and internvl2-26b (seeded patch
-   embeddings) at depth 4 and whisper-tiny whole (seeded frames, its
+   depth 4, moonshot-v1-16b-a3b and internvl2-26b (seeded patch
+   embeddings) at depth 2 and whisper-tiny whole (seeded frames, its
    448-token text context) for 3 steps at batch 4 x 2048, and
    zamba2-2.7b at 36 of its 54 layers at 1 x 2048 with gradient
    compression (one row a group of six layers) for 2 steps; each with ``save_async`` mid-run
@@ -134,29 +134,37 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    parameters' kernel prefill bit-equal to the live ones', with one
    kernel launch a layer (a shared-attention group) a prefill, and within
    the serve tolerance of the torch prefill (zamba2: argmax agreement, as
-   in serve).  Then falcon-mamba-7b at depth 8 one step with
+   in serve).  Then falcon-mamba-7b at depth 4 one step with
    ``mamba_fused_proj`` from the weights and batch of its first step
    above (losses within 2e-3; each peak); train steps in f32 on the card and on the CPU from weights
    drawn on the card (``TRAIN_F32_TOL``; whisper whole for 3 steps,
-   qwen3-1.7b at depth 2, moonshot and internvl2 at depth 1 and zamba2
-   at 6 over 32 tokens for 2; MoE routes that differ counted); and
-   the training CLI: the tiny preset for 40 steps with a checkpoint every
-   20, then resumed to 60 (exit 0, the resume line, the loss falling);
+   qwen3-1.7b at depth 2 for 2, moonshot and internvl2 at depth 1 and
+   zamba2 at 6 over 32 tokens for 1; MoE routes that differ counted; the CPU
+   halves on a worker thread beside the train runs and the fused step);
+   and the training CLI, on a second worker thread beside them: the tiny
+   preset for 40 steps with a checkpoint every 20, then resumed to 60
+   (exit 0, the resume line, the loss falling);
 9. mesh    — the sharded model path on a one-rank NCCL process group and
-   a (1, 1) ``("data", "model")`` DeviceMesh: qwen3-1.7b at its published
-   width and 4 layers, one train step, one prefill (``flash_attention``
-   through ``local_map``, launches counted and read just after) and 3
-   decode steps with DTensor parameters, AdamW state, batch and cache,
-   each against the same steps unsharded (``MESH_TOL``), and a
-   checkpoint restored through ``restore_latest(shardings=)``;
+   a (1, 1) ``("data", "model")`` DeviceMesh, each arch at its published
+   width (``MESH_RUNS``): qwen3-1.7b at 2 layers, falcon-mamba-7b at 2
+   (its prefill's ``ssm_scan`` through ``local_map``), zamba2-2.7b at 6
+   at batch 1 (``flash_attention`` at hd 80) and whisper-tiny whole (hd
+   64, the encoder non-causal over 1,500 frames): one prefill and 3
+   decode steps from the given weights, then one train step, with
+   DTensor parameters, AdamW state, batch and cache, each against the
+   same steps unsharded (``MESH_TOL``; the decode fed the plain run's
+   tokens), the kernels' launches counted and read just after (once a
+   layer, a group, or 4 + 4), and qwen3's checkpoint restored through
+   ``restore_latest(shardings=)``;
    dryrun  — ``python -m repro_torch.launch.dryrun`` on the card, rank 0
    of the production mesh in a fake world of 512 ranks at full width and
    depth: qwen3-1.7b x {train_4k, prefill_32k, decode_32k} on the
-   single-pod mesh, its train_4k on the multi-pod mesh and
-   moonshot-v1-16b-a3b's train_4k (``[dryrun]`` lines: FLOPs, link
-   bytes, roofline terms, peak, the local step's wall), each record's
-   FLOPs and collectives equal to the same cell's ``--device cpu`` record
-   (run in subprocesses beside the card's);
+   single-pod mesh, its train_4k on the multi-pod mesh,
+   moonshot-v1-16b-a3b's train_4k, falcon-mamba-7b's and zamba2-2.7b's
+   decode_32k and long_500k, and whisper-tiny's train_4k (``[dryrun]``
+   lines: FLOPs, link bytes, roofline terms, peak, the local step's
+   wall), each record's FLOPs and collectives equal to the same cell's
+   ``--device cpu`` record (run in subprocesses beside the card's);
 10. model-kernel timings — ``flash_attention`` and ``ssm_scan`` at the
    shapes the serve path gives them, beside their bounds, plain versions
    and (attention) ``scaled_dot_product_attention``; attention in bf16
@@ -184,6 +192,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -262,17 +271,21 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 PROMPT_OF = {"whisper-tiny": 416}
 # grok-1-314b at full width: its 64 layers are 628 GB in bf16, one layer 4.9 B
 # parameters, so 4 layers (42.5 GB with the embeddings) are served.
-# zamba2-2.7b's bf16 serve is cut to 3 of its 9 groups of six layers for the
+# zamba2-2.7b's bf16 serve is cut to 2 of its 9 groups of six layers for the
 # script's time limit: its prefill runs the Mamba-2 torch scan (about 14 s at
-# batch 4 over 54 layers, six prefills in the phase); phase_f32_paths still
-# drives all 54 layers (F32_DEPTH)
-SERVE_DEPTH = {"grok-1-314b": 4, "zamba2-2.7b": 18}
+# batch 4 over 54 layers, six prefills in the phase; at 18 layers the phase
+# took 32 s); phase_f32_paths still drives all 54 layers (F32_DEPTH)
+SERVE_DEPTH = {"grok-1-314b": 4, "zamba2-2.7b": 12}
 # phase_f32_paths in f32 at full width: moonshot's 48 layers need 112 GB,
 # internvl2's 48 79.4 GB and grok's 4 85 GB, so their depth is cut; grok's to
 # 1, since at 2 (46 GB of weights) the f32 expert transients of one-token
 # routing groups (about 35 GB at 4 x 2048) do not fit beside them
 F32_DEPTH = {"moonshot-v1-16b-a3b": 12, "internvl2-26b": 24, "grok-1-314b": 1,
              "zamba2-2.7b": 54}
+# phase_card_vs_cpu's depth where it is not 2: grok-1-314b's one layer of
+# 4.92 B parameters (19.7 GB in f32, held on the card and then the CPU; at
+# 2 layers its f32 and card-vs-cpu phases took 31 s)
+CARD_VS_CPU_DEPTH = {"grok-1-314b": 1}
 SERVE_SEED = 0
 BF16_TOL = 0.08  # tests/test_models_smoke.py (2 layers)
 # Decode against forward, and the "torch" prefill against the kernel one,
@@ -973,7 +986,7 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     return launches, wide, res, t_best, prog, times
 
 
-FTL_HOST_REQUESTS = 100_000  # the host FTL comparison's cut (see phase_ftl_sweep)
+FTL_HOST_REQUESTS = 50_000  # the host FTL comparison's cut (see phase_ftl_sweep)
 
 
 def within_device_tolerances(label: str, host: dict, device: dict) -> None:
@@ -1973,7 +1986,7 @@ def phase_f32_paths(dev: torch.device, arch: str) -> dict:
 def phase_card_vs_cpu(dev: torch.device, arch: str) -> float:
     """Full width, depth 2 (the hybrid: one group of ``shared_attn_every``
     Mamba-2 layers and its shared attention; whisper-tiny: all 4 + 4
-    layers), f32, TF32 off: one prompt of 256 tokens (the VLM: 512, its
+    layers; grok-1-314b: 1, ``CARD_VS_CPU_DEPTH``), f32, TF32 off: one prompt of 256 tokens (the VLM: 512, its
     first 256 positions patches) through the same weights on the card
     (kernels) and on the CPU (plain versions).  The parameters move to the
     CPU after the card's prefill, so no second copy is held.  For the MoE,
@@ -1981,7 +1994,8 @@ def phase_card_vs_cpu(dev: torch.device, arch: str) -> float:
     the two is reported."""
 
     cfg = get_config(arch)
-    depth = {"hybrid": cfg.shared_attn_every, "encdec": cfg.n_layers}.get(cfg.family, 2)
+    depth = {"hybrid": cfg.shared_attn_every, "encdec": cfg.n_layers}.get(
+        cfg.family, CARD_VS_CPU_DEPTH.get(arch, 2))
     cfg = dataclasses.replace(cfg, n_layers=depth, dtype="float32")
     model = get_model(cfg, dev)
     params = model.init_params(SERVE_SEED)
@@ -2160,15 +2174,18 @@ def model_kernel_timings(dev: torch.device, worst: dict, launches: dict,
 # its 448-token text context) from ShardedLoader(seed=0), AdamW at lr 3e-4
 # with linear_warmup_cosine(steps // 3, steps).  Weights, gradients and
 # AdamW's f32 moments take 12 bytes a parameter.  moonshot and internvl2 run
-# at depth 4: at 8 and 10 layers they fit (64.2 and 64.9 GiB), but their
-# 10 GB checkpoints took 100 s and 77 s of the script's time; zamba2-2.7b
+# at depth 2: at 8 and 10 layers they fit (64.2 and 64.9 GiB), but their
+# 10 GB checkpoints took 100 s and 77 s of the script's time, and at depth 4
+# their phases 49 s and 41 s, most of it the 5.9 and 5.4 GB saves and their
+# restores (cut to 2 for the 1,200 s limit); zamba2-2.7b
 # runs at batch 1 (a batch-4 prefill alone takes 13.7 s) with compression
 # on, whose rows are its groups of six layers, at 36 of its 54 layers (six
 # groups; whole, its phase took 79 s, cut for the mesh and dry-run phases'
-# time).
-TRAIN_RUNS = (("qwen3-1.7b", None, 6, 3, 4, False), ("falcon-mamba-7b", 8, 3, 2, 4, False),
-              ("moonshot-v1-16b-a3b", 4, 3, 2, 4, False), ("internvl2-26b", 4, 3, 2, 4, False),
-              ("whisper-tiny", None, 3, 2, 4, False), ("zamba2-2.7b", 36, 2, 1, 1, True))
+# time); falcon-mamba-7b at depth 4 (8 until the mesh and dry-run phases took
+# the ssm, hybrid and encoder-decoder families, for their time).
+TRAIN_RUNS = (("falcon-mamba-7b", 4, 3, 2, 4, False), ("zamba2-2.7b", 36, 2, 1, 1, True),
+              ("whisper-tiny", None, 3, 2, 4, False), ("qwen3-1.7b", None, 6, 3, 4, False),
+              ("moonshot-v1-16b-a3b", 2, 3, 2, 4, False), ("internvl2-26b", 2, 3, 2, 4, False))
 TRAIN_SEQ_OF = {"whisper-tiny": 448}
 TRAIN_PROFILED_STEP = 1  # after the first step's warm-up, before any save
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2048, 3e-4
@@ -2188,10 +2205,19 @@ TRAIN_F32_TOL = {"atol": 1e-5, "rtol": 1e-4, "outlier_share": 1e-4,
 # over 256 tokens 158 s, so the MoE and the VLM run at depth 1 (the VLM's
 # 288 tokens are its 256 patches and 32 text tokens), zamba2's one group of
 # six over 32 tokens (64 until the mesh and dry-run phases needed the
-# time), and each 2 steps but whisper's 3
-TRAIN_VS_CPU = (("qwen3-1.7b", 2, 256, 2), ("moonshot-v1-16b-a3b", 1, 256, 2),
-                ("internvl2-26b", 1, 288, 2), ("whisper-tiny", None, 256, 3),
-                ("zamba2-2.7b", 6, 32, 2))
+# time); qwen3 2 steps and whisper 3 (the later steps' gate), the MoE, the
+# VLM and zamba2 1.  The CPU halves (148 s of the script's time when they
+# ran after the card halves, 2 steps each) run on a worker thread at the
+# lowest priority beside TRAIN_RUNS and phase_fused_proj (the training CLI
+# on another), on CPU_HALF_THREADS of the host's 8 cores; the card halves
+# and the comparisons follow.  Beside them the checkpoint snapshots, saves
+# and restores of TRAIN_RUNS, which move host memory, took up to twice as
+# long (the CPU halves' AdamW is bound by the same memory), so TRAIN_RUNS
+# starts with the runs whose steps hold the card longest
+TRAIN_VS_CPU = (("qwen3-1.7b", 2, 256, 2), ("moonshot-v1-16b-a3b", 1, 256, 1),
+                ("internvl2-26b", 1, 288, 1), ("whisper-tiny", None, 256, 3),
+                ("zamba2-2.7b", 6, 32, 1))
+CPU_HALF_THREADS = 6
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -2358,7 +2384,7 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
     # the restored checkpoint served: kernel prefill of the restored and the
     # live parameters bit-equal, the torch prefill within the serve tolerance
     # (the archs gated in serve, and runs cut to under half their depth:
-    # falcon-mamba-7b at 8 of 64 layers) or agreeing on the argmax
+    # falcon-mamba-7b at 4 of 64 layers) or agreeing on the argmax
     # (zamba2-2.7b at 36 of 54 layers reached 0.117 in bf16, as at 54)
     kernel_model = get_model(dataclasses.replace(cfg, attention_impl="kernel",
                                                  ssm_impl="kernel"), dev)
@@ -2412,47 +2438,96 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
     return out
 
 
-def phase_train_card_vs_cpu(dev: torch.device, arch: str, layers, seq: int,
-                            steps: int) -> dict:
-    """``arch`` at full width, depth ``layers`` (None: whole), f32 (TF32
-    off), batch 1 x ``seq``: ``steps`` train steps on the card and on the
-    CPU from the same weights (drawn on the card) and batches, the two
-    results compared on the card.  For the MoE, the share of (token,
-    choice) routes (expert, kept) that differ between the two runs' calls is
-    reported, as in ``phase_card_vs_cpu``."""
+class _RouteRecorder:
+    """While entered, ``moe_routing``'s (expert, kept) choices of the calls
+    made on ``device``'s type, appended to ``routes``; other calls pass
+    through unrecorded (the CPU halves of ``TRAIN_VS_CPU`` run beside the
+    card's train phases, which route too; the card's backward pass, which
+    recomputes the forward, runs on autograd's own thread)."""
+
+    def __init__(self, routes: list, device):
+        self.routes, self.device = routes, torch.device(device).type
+
+    def __enter__(self):
+        self.routing = routing = model_layers.moe_routing
+
+        def record(*args, **kw):
+            out = routing(*args, **kw)
+            _, idx, slot, cap = out
+            if idx.device.type == self.device:
+                self.routes.append((idx.cpu(), (slot < cap).cpu()))
+            return out
+
+        model_layers.moe_routing = record
+        return self
+
+    def __exit__(self, *exc):
+        model_layers.moe_routing = self.routing
+
+
+def train_vs_cpu_case(dev: torch.device, arch: str, layers, seq: int, steps: int) -> dict:
+    """One ``TRAIN_VS_CPU`` comparison's inputs: ``arch`` at full width,
+    depth ``layers`` (None: whole), f32, its weights drawn on the card and
+    held on the CPU, and ``steps`` batches of 1 x ``seq`` tokens."""
 
     cfg = dataclasses.replace(train_config(arch, layers), dtype="float32")
-    opt = AdamWConfig(lr=TRAIN_LR, schedule=linear_warmup_cosine(1, 3))
     loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                       global_batch=1, seed=0), host_id=0)
-    cpu_params = get_model(cfg, dev).init_params(SERVE_SEED).to("cpu")
-    batches = [train_batch("cpu", cfg, loader, step, 1) for step in range(steps)]
-    routing, routes = model_layers.moe_routing, {}
+    return {"arch": arch, "cfg": cfg, "seq": seq, "steps": steps,
+            "params": get_model(cfg, dev).init_params(SERVE_SEED).to("cpu"),
+            "batches": [train_batch("cpu", cfg, loader, step, 1) for step in range(steps)]}
 
-    def record(*args, **kw):
-        out = routing(*args, **kw)
-        _, idx, slot, cap = out
-        routes[where].append((idx.cpu(), (slot < cap).cpu()))
-        return out
 
-    model_layers.moe_routing = record
-    runs = {}
+def _train_f32(case: dict, where) -> dict:
+    """``case``'s steps on ``where`` from a copy of its weights: the
+    parameters after them, each step's (loss, grad_norm), the seconds taken
+    and the MoE's routing choices."""
+
+    opt = AdamWConfig(lr=TRAIN_LR, schedule=linear_warmup_cosine(1, 3))
+    routes: list = []
+    t0 = time.perf_counter()
+    with _RouteRecorder(routes, where):
+        params = copy.deepcopy(case["params"]).to(where)
+        state = init_state(dict(params.named_parameters()))
+        step_fn = make_train_step(get_model(case["cfg"], where), opt)
+        metrics = []
+        for b in case["batches"]:
+            params, state, m = step_fn(params, state, {k: v.to(where) for k, v in b.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return {"params": params, "metrics": metrics, "seconds": time.perf_counter() - t0,
+            "routes": routes}
+
+
+def train_cpu_halves(cases: list) -> list:
+    """The CPU half of every ``TRAIN_VS_CPU`` case, one after another, on
+    ``CPU_HALF_THREADS`` of the host's cores: run on a worker thread beside
+    the card's train phases, whose steps keep the card busy and leave the
+    host's cores mostly idle.  The thread (and the threads its CPU ops
+    start) runs at the lowest priority, so the host work of the card's
+    phases goes first."""
+
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, CPU_HALF_THREADS))
     try:
-        for where in ("cpu", str(dev)):
-            routes[where] = []
-            t0 = time.perf_counter()
-            params = copy.deepcopy(cpu_params).to(where)
-            state = init_state(dict(params.named_parameters()))
-            step_fn = make_train_step(get_model(cfg, where), opt)
-            metrics = []
-            for b in batches:
-                params, state, m = step_fn(params, state, {k: v.to(where) for k, v in b.items()})
-                metrics.append((float(m["loss"]), float(m["grad_norm"])))
-            runs[where] = (params, metrics, time.perf_counter() - t0)
-            del state
+        out = []
+        return [_train_f32(case, "cpu") for case in cases]
     finally:
-        model_layers.moe_routing = routing
-    (p_cpu, m_cpu, t_cpu), (p_card, m_card, t_card) = runs["cpu"], runs[str(dev)]
+        torch.set_num_threads(threads)
+
+
+def phase_train_card_vs_cpu(dev: torch.device, case: dict, cpu_run: dict) -> dict:
+    """``case``'s (:func:`train_vs_cpu_case`) steps on the card, held on the
+    card against ``cpu_run``, the same steps on the CPU from the same
+    weights and batches (:func:`train_cpu_halves`).  For the MoE, the share
+    of (token, choice) routes (expert, kept) that differ between the two
+    runs' calls is reported, as in ``phase_card_vs_cpu``."""
+
+    arch, cfg, seq, steps = case["arch"], case["cfg"], case["seq"], case["steps"]
+    card_run = _train_f32(case, dev)
+    case["params"] = None
+    p_cpu, m_cpu, t_cpu = cpu_run["params"], cpu_run["metrics"], cpu_run["seconds"]
+    p_card, m_card, t_card = card_run["params"], card_run["metrics"], card_run["seconds"]
     metric_err = [max(abs(a - b) / abs(a) for a, b in zip(ra, rb))
                   for ra, rb in zip(m_cpu, m_card)]
     for step, err in enumerate(metric_err):
@@ -2478,8 +2553,8 @@ def phase_train_card_vs_cpu(dev: torch.device, arch: str, layers, seq: int,
            "loss_grad_norm_rel_err_by_step": metric_err, "param_max_abs_err": worst,
            "params_outside_tol": outliers, "params": total, "cpu_s": t_cpu, "card_s": t_card,
            "loss": [m[0] for m in m_card], "moe_routes": None}
-    if routes["cpu"]:
-        a_all, b_all = routes["cpu"], routes[str(dev)]
+    a_all, b_all = cpu_run["routes"], card_run["routes"]
+    if a_all or b_all:
         if len(a_all) != len(b_all):
             fail(f"train card vs cpu ({arch}): {len(a_all)} routing calls on the CPU, "
                  f"{len(b_all)} on the card")
@@ -2489,7 +2564,7 @@ def phase_train_card_vs_cpu(dev: torch.device, arch: str, layers, seq: int,
                              "calls": len(a_all)}
     log(f"[train-card-vs-cpu] {arch} full width, {cfg.n_layers} layers, f32, 1 x {seq}, "
         f"{steps} steps: {json.dumps(out)}")
-    del p_cpu, p_card, cpu_params
+    del p_cpu, p_card, cpu_run, card_run
     torch.cuda.empty_cache()
     return out
 
@@ -2507,7 +2582,7 @@ GROK_FP8_GATE_DEPTH = 4
 # cache leaves room for one layer less, so the run serves 13 and fails if they
 # do not fit
 GROK_FP8_SERVE_DEPTH = 13
-FUSED_DEPTH = 8
+FUSED_DEPTH = 4  # falcon-mamba-7b's depth in TRAIN_RUNS
 # the leaves that models/layers.py::wcast casts before their products
 WCAST_LEAVES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "router", "lm_head")
 FUSED_LOSS_TOL = 2e-3  # tests/test_perf_levers.py's bound for mamba_fused_proj
@@ -2692,7 +2767,7 @@ def _train_one_step(dev: torch.device, cfg, batch_n: int = TRAIN_BATCH,
 
 
 def phase_fused_proj(dev: torch.device, plain: dict) -> dict:
-    """falcon-mamba-7b at full width and depth 8, one train step (bf16,
+    """falcon-mamba-7b at full width and depth 4, one train step (bf16,
     ``remat="block"``, 4 x 2048) with ``mamba_fused_proj`` from the weights
     and batch of ``phase_train``'s first step (``plain``: that step's
     record): the losses within 2e-3, and each run's peak."""
@@ -2745,29 +2820,50 @@ def phase_train_cli() -> dict:
     return out
 
 
-# the mesh phase: qwen3-1.7b at its published width, depth cut for time, on a
-# one-rank NCCL mesh; the dry-run phase's cells, each at full width and depth
-MESH_ARCH, MESH_DEPTH, MESH_DECODE = "qwen3-1.7b", 4, 3
+# the mesh phase's runs on a one-rank NCCL (1, 1) mesh, each at its published
+# width, depth cut for time: (arch, layers kept (None: all), batch, tokens);
+# qwen3-1.7b's checkpoint is also restored with shardings=.  The prefill's
+# kernels go through local_map: qwen3's attention (hd 128) and falcon-mamba's
+# scan once a layer, zamba2-2.7b's attention (hd 80) once for its group of
+# six Mamba-2 layers, whisper-tiny's (hd 64) 4 + 4.  The dry-run phase's
+# cells, each at full width and depth
+MESH_RUNS = (("qwen3-1.7b", 2, 4, 2048), ("falcon-mamba-7b", 2, 4, 2048),
+             ("zamba2-2.7b", 6, 1, 2048), ("whisper-tiny", None, 4, 448))
+MESH_DECODE = 3
 # (atol, rtol) a sharded step on the (1, 1) mesh may differ by from the
 # plain one: nothing is split there, but the cross entropy over a split
 # vocab (max, sum of exp, the label's logit) and the split-KV decode
 # softmax (exp(s - max) / sum) round otherwise than torch's log_softmax and
 # softmax in f32.  Adam's first step moves each weight by about lr whatever
 # its gradient's size, so a small gradient whose sign rounds otherwise moves
-# a weight by 2 lr (and its bf16 rounding by up to an ulp more: 4 lr); the
-# prefill's bf16 k/v cache and the logits carry that, held at the serve
-# tolerance (0.1, and torch.testing's bf16 rtol); loss and grad_norm are f32
+# a weight by 2 lr (and its bf16 rounding by up to an ulp more: 4 lr).  The
+# serve steps run from the same weights (before the train step) and take
+# the same tokens; the prefill's caches (bf16, the Mamba states f32) and the
+# logits are held at the serve tolerance (0.1, and torch.testing's bf16
+# rtol); loss and grad_norm are f32
 MESH_TOL = {"loss": (0.0, 1e-3), "grad_norm": (0.0, 1e-3), "params": (4 * TRAIN_LR, 1.6e-2),
             "cache": (0.1, 1.6e-2), "prefill_logits": (0.1, 1.6e-2),
             "decode_logits": (0.1, 1.6e-2)}
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("qwen3-1.7b", "prefill_32k", "single"),
                 ("qwen3-1.7b", "decode_32k", "single"), ("qwen3-1.7b", "train_4k", "multi"),
-                ("moonshot-v1-16b-a3b", "train_4k", "single"))
-# the dry-run CLI calls that run them, one subprocess each (a subprocess
-# takes about 10 s to start on the card's host): qwen3's three cells on the
-# single-pod mesh (its applicable cells) in one
-DRYRUN_CALLS = (("qwen3-1.7b", None, "single"), ("qwen3-1.7b", "train_4k", "multi"),
-                ("moonshot-v1-16b-a3b", "train_4k", "single"))
+                ("moonshot-v1-16b-a3b", "train_4k", "single"),
+                ("falcon-mamba-7b", "decode_32k", "single"),
+                ("falcon-mamba-7b", "long_500k", "single"),
+                ("zamba2-2.7b", "decode_32k", "single"), ("zamba2-2.7b", "long_500k", "single"),
+                ("whisper-tiny", "train_4k", "single"))
+
+
+def dryrun_calls(device: str) -> list[tuple[tuple, str]]:
+    """The dry-run CLI calls that run ``DRYRUN_CELLS``, as ((arch, cell)
+    pairs, mesh): on the card one a mesh (a subprocess takes about 10 s to
+    start on the card's host), on the CPU one an arch and mesh, side by
+    side (``FakeTensorMode`` is Python-bound, a core a call)."""
+
+    calls: dict = {}
+    for arch, cell, mesh in DRYRUN_CELLS:
+        key = mesh if device == "cuda" else (arch, mesh)
+        calls.setdefault(key, ([], mesh))[0].append((arch, cell))
+    return [(tuple(pairs), mesh) for pairs, mesh in calls.values()]
 
 
 def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2784,36 +2880,59 @@ def _outside(want: torch.Tensor, got: torch.Tensor, atol: float, rtol: float) ->
 
 def phase_mesh(dev: torch.device) -> dict:
     """The sharded model path on a one-rank NCCL process group and a (1, 1)
-    ``("data", "model")`` mesh on the card: qwen3-1.7b at its published
-    width and ``MESH_DEPTH`` layers, one train step (batch 4 x 2048), one
-    prefill and ``MESH_DECODE`` greedy decode steps with DTensor
-    parameters, optimizer state, batch and cache, each held against the
-    same steps unsharded on the card (``MESH_TOL``, every measured max abs
-    difference printed); the prefill's ``flash_attention`` launches go
-    through ``local_map`` and are counted; a checkpoint of the plain
-    weights restored through ``restore_latest(shardings=)``, every leaf
-    bit-equal.  The group is destroyed before the next phase."""
+    ``("data", "model")`` mesh on the card, for each of ``MESH_RUNS``: one
+    train step, one prefill and ``MESH_DECODE`` greedy decode steps with
+    DTensor parameters, optimizer state, batch and cache, each held against
+    the same steps unsharded on the card (``MESH_TOL``, every measured max
+    abs difference printed); the sharded prefill's ``flash_attention`` and
+    ``ssm_scan`` launches go through ``local_map`` and are counted (the
+    counts set to 0 just before the sharded run and read just after); the
+    first run's checkpoint of the plain weights restored through
+    ``restore_latest(shardings=)``, every leaf bit-equal.  The group is
+    destroyed before the next phase.  Returns each run's record under its
+    arch."""
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_DEPTH)
-    tree = tree_from_params(get_model(cfg, dev).init_params(SERVE_SEED))
-    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
-    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=g,
-                         device=dev)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    kw = dict(device=dev, decode_steps=MESH_DECODE, lr=TRAIN_LR)
-    plain = sharded_steps(cfg, tree, batch, None, **kw)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {}
     try:
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
-        fa_ops.reset_launches()
-        sharded = sharded_steps(cfg, tree, batch, mesh, **kw)
-        launches = fa_ops.launches["flash_attention"]
-        ckpt = Checkpointer(TieredCheckpointStore(root))
+        for i, run in enumerate(MESH_RUNS):
+            out[run[0]] = _mesh_run(dev, mesh, *run, root if i == 0 else None)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _mesh_run(dev: torch.device, mesh, arch: str, layers, batch_n: int, seq: int,
+              ckpt_root: str | None) -> dict:
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    tree = tree_from_params(get_model(cfg, dev).init_params(SERVE_SEED))
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (batch_n, seq + 1), generator=g, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             **frontend_inputs(cfg, batch_n, SERVE_SEED + 2, dev)}
+    # served from the given weights, before the train step, whose update
+    # rounds otherwise on the mesh; the sharded decode fed the plain one's
+    # tokens, so that a near tie of random weights' logits that the
+    # argmax breaks otherwise does not change the input
+    kw = dict(device=dev, decode_steps=MESH_DECODE, lr=TRAIN_LR, serve_first=True)
+    plain = sharded_steps(cfg, tree, batch, None, **kw)
+    fa_ops.reset_launches()
+    ssm_ops.reset_launches()
+    sharded = sharded_steps(cfg, tree, batch, mesh, decode_tokens=plain["decode_tokens"], **kw)
+    launches = {"flash_attention": fa_ops.launches["flash_attention"],
+                "ssm_scan": ssm_ops.launches["ssm_scan"]}
+    restored_leaves = 0
+    if ckpt_root is not None:
+        ckpt = Checkpointer(TieredCheckpointStore(ckpt_root))
         ckpt.save_blocking(0, {"params": tree})
         shardings = {"params": {
             k: ({kk: (mesh, placements_for(tree[k][kk].shape, ax, mesh)) for kk, ax in v.items()}
@@ -2824,10 +2943,8 @@ def phase_mesh(dev: torch.device) -> dict:
         for path, leaf in _leaves(restored["params"]):
             want = dict(_leaves(tree))[path]
             if not torch.equal(_bits(leaf.to_local()), _bits(want)):
-                fail(f"[mesh] restored leaf {path} differs")
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(root, ignore_errors=True)
+                fail(f"[mesh] {arch}: restored leaf {path} differs")
+            restored_leaves += 1
     pairs = {
         "loss": [(plain["loss"], sharded["loss"])],
         "grad_norm": [(plain["grad_norm"], sharded["grad_norm"])],
@@ -2838,31 +2955,39 @@ def phase_mesh(dev: torch.device) -> dict:
                                   strict=True)),
     }
     diffs = {k: max(_max_diff(a, b) for a, b in v) for k, v in pairs.items()}
-    out = {"arch": MESH_ARCH, "layers": MESH_DEPTH, "max_abs_diff": diffs,
-           "bit_equal": {k: diffs[k] == 0.0 for k in diffs}, "launches": launches,
-           "restored_leaves": len(_leaves(tree)), "seconds": time.perf_counter() - t0}
-    log(f"[mesh] {json.dumps(out)}")
+    kernel, want = prefill_launches(cfg)
+    greedy = [int((torch.argmax(a[:, -1], -1) == torch.argmax(b[:, -1], -1)).sum())
+              for a, b in [pairs["prefill_logits"][0], *pairs["decode_logits"]]]
+    res = {"arch": arch, "layers": cfg.n_layers, "batch": batch_n, "tokens": seq,
+           "max_abs_diff": diffs, "bit_equal": {k: diffs[k] == 0.0 for k in diffs},
+           "cache_max_abs_diff": {k: _max_diff(plain["cache"][k], sharded["cache"][k])
+                                  for k in plain["cache"]},
+           "greedy_rows_agreeing": greedy,
+           "launches": launches, "kernel": fa_instance(cfg.head_dim_)
+           if kernel == "flash_attention" else kernel,
+           "restored_leaves": restored_leaves, "seconds": time.perf_counter() - t0}
+    log(f"[mesh] {json.dumps(res)}")
     for k, (atol, rtol) in MESH_TOL.items():
         excess = max(_outside(a, b, atol, rtol) for a, b in pairs[k])
         if excess > 0:
-            fail(f"[mesh] {k}: sharded differs from plain by {diffs[k]}, past atol {atol} "
-                 f"+ rtol {rtol} by {excess}")
-    if launches != MESH_DEPTH:
-        fail(f"[mesh] the sharded prefill launched flash_attention {launches} times, "
-             f"not once a layer ({MESH_DEPTH})")
-    return out
+            fail(f"[mesh] {arch} {k}: sharded differs from plain by {diffs[k]}, past atol "
+                 f"{atol} + rtol {rtol} by {excess}")
+    if launches[kernel] != want or sum(launches.values()) != want:
+        fail(f"[mesh] {arch}: the sharded prefill launched {launches}, not {kernel} "
+             f"{want} times")
+    return res
 
 
-def _dryrun_cmd(arch: str, cell: str | None, mesh: str, device: str, out_dir: str) -> list:
+def _dryrun_cmd(pairs: tuple, mesh: str, device: str, out_dir: str) -> list:
     return [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", device,
-            "--arch", arch, *(["--cell", cell] if cell else []), "--mesh", mesh,
+            "--only", ",".join(f"{a}:{c}" for a, c in pairs), "--mesh", mesh,
             "--out", out_dir, "--force"]
 
 
 @contextlib.contextmanager
 def cpu_dryruns():
-    """``DRYRUN_CALLS`` with ``--device cpu`` (``FakeTensorMode``: no card,
-    no allocation), one subprocess a call, started on entry so that they
+    """``DRYRUN_CELLS`` with ``--device cpu`` (``FakeTensorMode``: no card,
+    no allocation), in ``dryrun_calls("cpu")``, started on entry so that they
     run beside ``phase_mesh`` and the card's cells; yields (their out dir,
     the processes); on exit every one still running is killed and the
     records removed."""
@@ -2871,7 +2996,7 @@ def cpu_dryruns():
     root = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     procs = [subprocess.Popen(_dryrun_cmd(*c, "cpu", os.path.join(root, "cpu")), env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for c in DRYRUN_CALLS]
+             for c in dryrun_calls("cpu")]
     try:
         yield root, procs
     finally:
@@ -2886,7 +3011,9 @@ def phase_dryrun(root: str, cpu: list) -> dict:
     """``python -m repro_torch.launch.dryrun`` over ``DRYRUN_CELLS``: rank
     0's program of the production mesh in a fake world of 512 ranks, at
     full width and depth, on the card (real allocations, each cell's peak),
-    the ``DRYRUN_CALLS`` one after another; each card record's FLOPs,
+    ``dryrun_calls("cuda")`` side by side (the two meshes' peaks, 26 and 10
+    GB, fit one card together; each peak is its own process's, and the
+    local step walls overlap); each card record's FLOPs,
     collective counts and collective bytes must equal the record of the
     same cell run on the CPU by ``cpu`` (:func:`cpu_dryruns`).  Any failure
     or out-of-memory exits nonzero."""
@@ -2894,17 +3021,25 @@ def phase_dryrun(root: str, cpu: list) -> dict:
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     records = {}
-    for call in DRYRUN_CALLS:
-        proc = subprocess.run(_dryrun_cmd(*call, "cuda", os.path.join(root, "cuda")),
-                              env=env, capture_output=True, text=True, timeout=600)
-        for line in proc.stdout.splitlines():
-            if line.startswith("[dryrun] OK") or line.startswith("[dryrun] FAIL"):
-                log(f"{line} device=cuda")
-        if proc.returncode != 0:
-            fail(f"[dryrun] {call} on the card exited {proc.returncode}: "
-                 f"{proc.stderr[-3000:]}")
+    calls = dryrun_calls("cuda")
+    procs = [subprocess.Popen(_dryrun_cmd(*call, "cuda", os.path.join(root, "cuda")), env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for call in calls]
+    try:
+        for call, proc in zip(calls, procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            for line in stdout.splitlines():
+                if line.startswith("[dryrun] OK") or line.startswith("[dryrun] FAIL"):
+                    log(f"{line} device=cuda")
+            if proc.returncode != 0:
+                fail(f"[dryrun] {call} on the card exited {proc.returncode}: {stderr[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     t_card = time.perf_counter() - t0
-    for call, p in zip(DRYRUN_CALLS, cpu):
+    for call, p in zip(dryrun_calls("cpu"), cpu):
         _, stderr = p.communicate(timeout=600)
         if p.returncode != 0:
             fail(f"[dryrun] {call} on the cpu exited {p.returncode}: {stderr[-3000:]}")
@@ -2998,6 +3133,10 @@ def main() -> int:
     log(f"[levers] the serving lever phases took {time.perf_counter() - t_levers:.1f} s")
     t_train = time.perf_counter()
     first_steps = {}
+    cases = [train_vs_cpu_case(dev, *run) for run in TRAIN_VS_CPU]
+    beside = concurrent.futures.ThreadPoolExecutor(2)
+    cpu_runs = beside.submit(train_cpu_halves, cases)
+    cli = beside.submit(phase_train_cli)
     for run in TRAIN_RUNS:
         t_run = time.perf_counter()
         res = phase_train(dev, *run)
@@ -3010,19 +3149,33 @@ def main() -> int:
     t_run = time.perf_counter()
     phase_fused_proj(dev, first_steps["falcon-mamba-7b"])
     log(f"[fused] the mamba_fused_proj phase took {time.perf_counter() - t_run:.1f} s")
-    for run in TRAIN_VS_CPU:
+    t_run = time.perf_counter()
+    cli.result()
+    cpu_runs = cpu_runs.result()
+    beside.shutdown()
+    log(f"[train-card-vs-cpu] the CPU halves and the training CLI ended "
+        f"{time.perf_counter() - t_run:.1f} s after the card's train phases; the CPU halves "
+        f"took {sum(r['seconds'] for r in cpu_runs):.1f} s")
+    for case, cpu_run in zip(cases, cpu_runs):
         t_run = time.perf_counter()
-        phase_train_card_vs_cpu(dev, *run)
-        log(f"[train-card-vs-cpu] {run[0]}: took {time.perf_counter() - t_run:.1f} s")
-    phase_train_cli()
+        phase_train_card_vs_cpu(dev, case, cpu_run)
+        log(f"[train-card-vs-cpu] {case['arch']}: took {time.perf_counter() - t_run:.1f} s")
+    del cases, cpu_runs
     log(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s")
     with cpu_dryruns() as (dry_root, dry_cpu):
+        t_mesh = time.perf_counter()
         mesh = phase_mesh(dev)
-        model_launches["flash_attention"] = model_launches.get("flash_attention", 0) + \
-            mesh["launches"]
+        log(f"[mesh] the mesh phase took {time.perf_counter() - t_mesh:.1f} s")
+        mesh_launches = {}  # per kernel row, through local_map
+        for res in mesh.values():
+            mesh_launches[res["kernel"]] = mesh_launches.get(res["kernel"], 0) + \
+                sum(res["launches"].values())
+        for name, count in mesh_launches.items():
+            model_launches[name] = model_launches.get(name, 0) + count
         phase_dryrun(dry_root, dry_cpu)
     kernels += model_kernel_timings(dev, model_worst, model_launches, clock_mhz * 1e6)
-    kernels[-4]["launches_mesh"] = mesh["launches"]  # the flash_attention (hd 128) row
+    for row in kernels[-4:]:  # the model kernels' rows
+        row["launches_mesh"] = mesh_launches.get(row["name"], 0)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -231,17 +231,19 @@ def replicated_like(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
-def grad_placements(in_placements) -> tuple:
+def grad_placements(in_placements, out_placements=()) -> tuple:
     """The placements of the gradients a ``local_map`` function gives its
     inputs laid out by ``in_placements`` (one sequence a tensor input,
-    ``None`` for another argument): an input sharded on a mesh dim gets its
-    own shard's gradient; one replicated on a mesh dim that another input
-    splits gets a partial sum there, each rank's share of the work."""
+    ``None`` for another argument) when it lays its outputs out by
+    ``out_placements`` (one sequence an output): an input sharded on a
+    mesh dim gets its own shard's gradient; one replicated on a mesh dim
+    that another input or an output splits gets a partial sum there, each
+    rank's share of the work."""
 
     from torch.distributed.tensor import Partial, Replicate, Shard
 
-    split = [any(isinstance(pl[i], Shard) for pl in in_placements if pl is not None)
-             for i in range(len(next(pl for pl in in_placements if pl is not None)))]
+    given = [pl for pl in (*in_placements, *out_placements) if pl is not None]
+    split = [any(isinstance(pl[i], Shard) for pl in given) for i in range(len(given[0]))]
     return tuple(None if pl is None else tuple(
         Partial() if isinstance(p, Replicate) and split[i] else p for i, p in enumerate(pl))
         for pl in in_placements)

@@ -28,12 +28,15 @@ a while-loop body once; eager torch runs and counts every layer and every
 chunk, so ``calibration`` is ``null`` and ``roofline_raw`` equals
 ``roofline``.
 
-The dense, MoE and VLM families run; the ``ssm``, ``hybrid`` and
-``encdec`` families' sharded steps are the next slice of the port, and
-``run_cell`` raises ``NotImplementedError`` for them.
+Every family runs: every arch x ``applicable_cells`` x mesh, the
+``long_500k`` cells of the ``ssm`` and ``hybrid`` families included (their
+decode state is O(1) in context length; the hybrid's shared-attention
+caches split on ``cache_seq``).
 
 Usage (``--device`` defaults to the CUDA card):
     python -m repro_torch.launch.dryrun --arch qwen3-1.7b --cell train_4k --mesh single
+    python -m repro_torch.launch.dryrun --mesh single \
+        --only falcon-mamba-7b:decode_32k,zamba2-2.7b:long_500k
     python -m repro_torch.launch.dryrun --all [--mesh both] [--force] --device cpu
 """
 
@@ -42,6 +45,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import time
@@ -61,7 +65,6 @@ from .steps import make_prefill_step, make_serve_step, make_train_step
 
 OUT_DIR = "experiments/dryrun_torch"
 FAKE_WORLD = 2 * 16 * 16
-SHARDED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _rules(cfg):
@@ -129,10 +132,6 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str, out_dir: str = OUT_DIR,
     CUDA card."""
 
     cfg = override_cfg if override_cfg is not None else get_config(arch)
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family's sharded step is not ported yet (the port's next "
-            f"slice); the dry run runs the {SHARDED_FAMILIES} families")
     dev = resolve_device(device)
     name = f"{arch}__{cell_name}__{mesh_kind}{tag}"
     out_path = os.path.join(out_dir, name + ".json")
@@ -151,6 +150,8 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str, out_dir: str = OUT_DIR,
         }
         if dev.type == "cuda":
             fake = contextlib.nullcontext()
+            gc.collect()  # an earlier cell's tensors in reference cycles, out of the peak
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         else:
             from torch._subclasses.fake_tensor import FakeTensorMode
@@ -197,6 +198,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--cell", default=None)
+    ap.add_argument("--only", default=None,
+                    help="arch:cell pairs joined by commas, in place of --arch/--cell/--all")
     ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
@@ -206,37 +209,36 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    if args.all:
-        archs = [a for a in ARCHITECTURES if get_config(a).family in SHARDED_FAMILIES]
+    if args.only:
+        pairs = [tuple(p.split(":")) for p in args.only.split(",")]
+    elif args.all:
+        pairs = [(a, c) for a in ARCHITECTURES for c in applicable_cells(get_config(a))]
+    elif args.arch:
+        pairs = [(args.arch, c) for c in
+                 ([args.cell] if args.cell else applicable_cells(get_config(args.arch)))]
     else:
-        if not args.arch:
-            raise SystemExit("--arch or --all required")
-        archs = [args.arch]
+        raise SystemExit("--arch, --only or --all required")
 
     failures = []
-    for arch in archs:
-        cfg = get_config(arch)
-        cells = [args.cell] if args.cell else applicable_cells(cfg)
-        for cell in cells:
-            for mesh_kind in meshes:
-                label = f"{arch} x {cell} x {mesh_kind}"
-                t0 = time.time()
-                try:
-                    rec = run_cell(arch, cell, mesh_kind, args.out, force=args.force,
-                                   device=dev)
-                    r, mem = rec["roofline"], rec["memory"]
-                    print(f"[dryrun] OK   {label:55s} {time.time() - t0:7.1f}s "
-                          f"flops={r['flops_per_device']:.6g} "
-                          f"link_bytes={r['link_bytes_per_device']:.6g} "
-                          f"compute_s={r['compute_s']:.6g} memory_s={r['memory_s']:.6g} "
-                          f"collective_s={r['collective_s']:.6g} dominant={r['dominant']} "
-                          f"peak_allocated_bytes={mem['peak_allocated_bytes']} "
-                          f"step_s={rec['step_s']}", flush=True)
-                except Exception as e:  # noqa: BLE001 -- record and continue
-                    failures.append((label, repr(e)))
-                    traceback.print_exc()
-                    print(f"[dryrun] FAIL {label:55s} {time.time() - t0:7.1f}s "
-                          f"{e!r:.120}", flush=True)
+    for arch, cell in pairs:
+        for mesh_kind in meshes:
+            label = f"{arch} x {cell} x {mesh_kind}"
+            t0 = time.time()
+            try:
+                rec = run_cell(arch, cell, mesh_kind, args.out, force=args.force, device=dev)
+                r, mem = rec["roofline"], rec["memory"]
+                print(f"[dryrun] OK   {label:55s} {time.time() - t0:7.1f}s "
+                      f"flops={r['flops_per_device']:.6g} "
+                      f"link_bytes={r['link_bytes_per_device']:.6g} "
+                      f"compute_s={r['compute_s']:.6g} memory_s={r['memory_s']:.6g} "
+                      f"collective_s={r['collective_s']:.6g} dominant={r['dominant']} "
+                      f"peak_allocated_bytes={mem['peak_allocated_bytes']} "
+                      f"step_s={rec['step_s']}", flush=True)
+            except Exception as e:  # noqa: BLE001 -- record and continue
+                failures.append((label, repr(e)))
+                traceback.print_exc()
+                print(f"[dryrun] FAIL {label:55s} {time.time() - t0:7.1f}s "
+                      f"{e!r:.120}", flush=True)
     if failures:
         print(f"\n[dryrun] {len(failures)} FAILURES:")
         for label, err in failures:

@@ -4,9 +4,9 @@ compare their roofline terms with the cell's baseline record.
 Each variant is a named dict of ModelConfig overrides; results land in
 ``experiments/hillclimb_torch/<arch>__<cell>__<mesh>__<variant>.json`` and
 a comparison table prints at the end.  The baseline is the cell's record in
-the dry run's out dir (run first if it is not there).  ``falcon_train``'s
-Mamba family has no sharded step yet, so its target raises
-``NotImplementedError`` from :func:`repro_torch.launch.dryrun.run_cell`.
+the dry run's out dir (run first if it is not there).  Every target runs,
+``falcon_train``'s Mamba-1 variants (``mamba_fused_proj``, ``scan_chunk``,
+``microbatch``) on the sharded Mamba-1 block included.
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --target qwen3_train
 """

@@ -1,4 +1,10 @@
-"""Encoder-decoder trunk (the whisper-tiny family), served on one card.
+"""Encoder-decoder trunk (the whisper-tiny family), trained and served on one
+card or, with DTensor parameters and inputs, on a mesh: the reference's
+sharding points (the frames on ``("batch", "frames", None)``, the logits on
+``("batch", None, "vocab")``, the self-attention caches on ``cache_seq``),
+the sinusoid tables replicated, cross attention on each rank's rows and
+heads through ``local_map`` as self attention, and the tied head as the
+explicit product over a split vocab.
 
 The audio conv frontend is a stub, as in the reference: the batch carries
 precomputed frame embeddings ``frames`` (B, n_frames, D), the output of
@@ -21,6 +27,7 @@ import types
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -34,6 +41,19 @@ def _sinusoid(length: int, dim: int) -> np.ndarray:
     i = np.arange(dim // 2)[None, :]
     angle = pos / np.power(10_000.0, 2 * i / dim)
     return np.concatenate([np.sin(angle), np.cos(angle)], axis=-1).astype(np.float32)
+
+
+def _sinusoid_like(x: torch.Tensor, length: int, dim: int, dtype: torch.dtype) -> torch.Tensor:
+    """The prefill table in ``dtype`` on ``x``'s device, a replicated
+    DTensor when ``x`` is one.  Made at each call on the CPU: a cached table
+    would be a real tensor that a CPU dry run's FakeTensorMode refuses, or
+    a fake one cached under it."""
+
+    if x.device.type == "cpu":
+        table = torch.as_tensor(_sinusoid(length, dim)).to(dtype)
+    else:
+        table = _sinusoid_on(length, dim, dtype, x.device)
+    return L.replicated_like(x, table)
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +177,8 @@ def _encoder_block(cfg: ModelConfig, w, x, positions):
 def encode(cfg: ModelConfig, params: EncDecParams, frames: torch.Tensor) -> torch.Tensor:
     dt = L.dtype_of(cfg)
     t = frames.shape[1]
-    x = frames.to(dt) + _sinusoid_on(t, cfg.d_model, dt, frames.device)[None]
+    x = frames.to(dt) + _sinusoid_like(frames, t, cfg.d_model, dt)[None]
+    x = L.constrain(x, "batch", "frames", None)
     positions = torch.arange(t, device=frames.device)
     block = (functools.partial(L.checkpointed, _encoder_block) if cfg.remat == "block"
              else _encoder_block)
@@ -188,7 +209,7 @@ def forward(cfg: ModelConfig, params: EncDecParams, tokens: torch.Tensor,
     dt = L.dtype_of(cfg)
     s = tokens.shape[1]
     x = L.embed_tokens(cfg, params.tok_emb, tokens)
-    x = x + _sinusoid_on(s, cfg.d_model, dt, tokens.device)[None]
+    x = x + _sinusoid_like(x, s, cfg.d_model, dt)[None]
     positions = torch.arange(s, device=tokens.device)
     block = (functools.partial(L.checkpointed, _decoder_block) if cfg.remat == "block"
              else _decoder_block)
@@ -200,12 +221,23 @@ def forward(cfg: ModelConfig, params: EncDecParams, tokens: torch.Tensor,
     x = L.layer_norm(x, params.dec_final_norm, params.dec_final_norm_b, cfg.norm_eps)
     if not collect_cache:
         return x, None
-    return x, {key: torch.stack(ts) for key, ts in zip(("k", "v", "cross_k", "cross_v"),
-                                                      zip(*caches))}
+    cache = {key: torch.stack(ts) for key, ts in zip(("k", "v", "cross_k", "cross_v"),
+                                                     zip(*caches))}
+    return x, _constrain_self_caches(cache)
+
+
+def _constrain_self_caches(cache: dict) -> dict:
+    return {k: L.constrain(v, None, "batch", "cache_seq", None, None) if k in ("k", "v") else v
+            for k, v in cache.items()}
 
 
 def _logits(params: EncDecParams, x: torch.Tensor) -> torch.Tensor:
-    return x @ params.tok_emb.T  # tied head: bsd,vd->bsv
+    """The tied head (bsd,vd->bsv); on DTensors the explicit FSDP x TP
+    product over a split vocab (``layers._matmul``)."""
+
+    head = params.tok_emb.T
+    logits = L._matmul(x, head) if isinstance(x, DTensor) else x @ head
+    return L.constrain(logits, "batch", None, "vocab")
 
 
 def loss_fn(cfg: ModelConfig, params: EncDecParams, batch: dict) -> torch.Tensor:
@@ -231,7 +263,8 @@ def decode_step(cfg: ModelConfig, params: EncDecParams, cache: dict,
 
     dt = L.dtype_of(cfg)
     x = L.embed_tokens(cfg, params.tok_emb, tokens)
-    x = x + _sinusoid_at(pos, cfg.d_model, tokens.device).to(dt)[None, None, :]
+    row = _sinusoid_at(pos, cfg.d_model, tokens.device).to(dt)
+    x = x + L.replicated_like(x, row)[None, None, :]
     positions = torch.full((tokens.shape[0], 1), int(pos), device=tokens.device)
     for i, w in enumerate(params.decoder):
         h = L.layer_norm(x, w.self_norm, w.self_norm_b, cfg.norm_eps)
@@ -245,7 +278,7 @@ def decode_step(cfg: ModelConfig, params: EncDecParams, cache: dict,
         h = L.layer_norm(x, w.mlp_norm, w.mlp_norm_b, cfg.norm_eps)
         x = x + L.mlp(cfg, w, h)
     x = L.layer_norm(x, params.dec_final_norm, params.dec_final_norm_b, cfg.norm_eps)
-    return _logits(params, x), cache
+    return _logits(params, x), _constrain_self_caches(cache)
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, seq: int) -> dict:

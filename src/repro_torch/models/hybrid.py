@@ -1,4 +1,7 @@
-"""Hybrid SSM + shared-attention LM (zamba2-2.7b family), served on one card.
+"""Hybrid SSM + shared-attention LM (zamba2-2.7b family), trained and served
+on one card or, with DTensor parameters and inputs, on a mesh (each rank
+runs its Mamba-2 heads, ``layers.mamba2_block``; the shared attention on its
+rows and heads through ``local_map``).
 
 A Mamba-2 backbone with ONE shared attention + MLP block (a single weight
 set) applied after every ``cfg.shared_attn_every``-th Mamba layer, as the
@@ -11,7 +14,8 @@ pass.
 
 Decode state keeps the reference's stacked layout: ``{"conv":
 (G,E,B,K-1,C), "h": (G,E,B,DI,N) f32, "attn_k"/"attn_v": (G,B,S,KV,hd)}``,
-one KV cache per shared application.  A decode step writes the new k/v
+one KV cache per shared application, which a prefill lays out on
+``cache_seq`` as the reference's does.  A decode step writes the new k/v
 into ``attn_k``/``attn_v`` in place.
 """
 
@@ -165,7 +169,8 @@ def forward(cfg: ModelConfig, params: HybridParams, tokens: torch.Tensor,
     new_state = {"conv": torch.stack(convs).unflatten(0, (g, e)),
                  "h": torch.stack(hs).unflatten(0, (g, e))}
     if state is None:
-        new_state.update(attn_k=torch.stack(ks), attn_v=torch.stack(vs))
+        new_state.update({name: L.constrain(torch.stack(t), None, "batch", "cache_seq", None, None)
+                          for name, t in (("attn_k", ks), ("attn_v", vs))})
     else:  # the caches were written in place
         new_state.update(attn_k=state["attn_k"], attn_v=state["attn_v"])
     return x, new_state

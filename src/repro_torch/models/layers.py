@@ -18,13 +18,16 @@ the same torch code under both.
 Activations carry the reference's sharding annotations at its sites
 (:func:`~repro_torch.distributed.sharding.constrain`: q/k/v and the
 attention output, the decode cache, the MLP hidden, the MoE dispatch and
-expert tensors, the Mamba ``xz``/``xi``/``delta``/output, the embedding and
-the logits); without a mesh, or on plain tensors, they return their input.
-Under a mesh, with DTensor parameters and inputs, what DTensor has no
-usable rule for runs on each rank's shards (:func:`on_local_shards`): the
-attention core (the kernel is a custom op), the 2-d products (laid out as
-FSDP x TP), the MoE routing, tables and experts, the embedding lookup, the
-split-KV decode attention and the cross entropy over a split vocab.
+expert tensors, the Mamba output, the embedding and the logits); without a
+mesh, or on plain tensors, they return their input.  Under a mesh, with
+DTensor parameters and inputs, what DTensor has no usable rule for runs on
+each rank's shards (:func:`on_local_shards`): the self and cross attention
+cores (the kernel is a custom op), the 2-d products (laid out as FSDP x
+TP), the MoE routing, tables and experts, the embedding lookup (a gather
+or a one-hot product), the split-KV decode attention, the cross entropy
+over a split vocab, and the Mamba blocks' conv and scan (the ``ssm_scan``
+kernel too) on each rank's channels, their ``xz``/``xi``/``delta`` laid out
+on ``"inner"`` as the reference's annotations lay them.
 
 The reference's perf levers are here too: ``matmul_weight_dtype`` casts a
 weight right before its matmul (:func:`wcast`, at the reference's sites
@@ -144,6 +147,7 @@ def on_local_shards(fn, out_placements, in_placements, *args):
     which a transposed shard refuses."""
 
     mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    outs = out_placements if isinstance(out_placements, tuple) else (out_placements,)
 
     def local(*xs):
         xs = [_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor) and x.requires_grad
@@ -152,8 +156,30 @@ def on_local_shards(fn, out_placements, in_placements, *args):
         return tuple(o.contiguous() for o in out) if isinstance(out, tuple) else out.contiguous()
 
     return local_map(local, out_placements=out_placements, in_placements=in_placements,
-                     in_grad_placements=grad_placements(in_placements), device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+                     in_grad_placements=grad_placements(in_placements, outs),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _block_of(mesh, placements, dim: int) -> tuple[int, int]:
+    """(this rank's block, the number of blocks) of tensor dim ``dim`` laid
+    out by ``placements``: the dim is split over the mesh dims that shard
+    it, in mesh order."""
+
+    block, n = 0, 1
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            block, n = block * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+    return block, n
+
+
+def _moved(placements, **dims) -> tuple:
+    """Another tensor's placements from ``placements``: ``Shard(d)`` where
+    ``placements`` has ``Shard(old)`` and ``dims`` maps ``f"d{old}"`` to
+    ``d``, ``Replicate()`` elsewhere (e.g. ``_moved(pl, d0=0)``: the batch
+    split alone)."""
+
+    return tuple(Shard(dims[f"d{p.dim}"]) if isinstance(p, Shard) and f"d{p.dim}" in dims
+                 else Replicate() for p in placements)
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, axes: int = 1) -> torch.Tensor:
@@ -344,7 +370,9 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
 
     if cross_kv is not None:
         q = constrain(_matmul(x, wcast(cfg, w.wq, x.dtype)), "batch", None, "heads", None)
-        o = _attend_direct(q, *cross_kv, n_rep, scale, causal=False)
+        cross = functools.partial(_attend_direct, scale=scale, causal=False)
+        o = (_attention_on_local_shards(cfg, cross, q, *cross_kv) if isinstance(q, DTensor)
+             else cross(q, *cross_kv, n_rep))
         return constrain(_matmul(o, wcast(cfg, w.wo, x.dtype), axes=2), "batch", None, None), None
 
     q, k, v = _project_qkv(cfg, w, x)
@@ -354,7 +382,8 @@ def attention(cfg: ModelConfig, w, x: torch.Tensor, *, positions: torch.Tensor,
 
     if kv_cache is None:
         if isinstance(q, DTensor):
-            o = _self_attention_on_local_shards(cfg, q, k, v, causal, scale)
+            o = _attention_on_local_shards(
+                cfg, lambda q, k, v, r: _self_attention(cfg, q, k, v, causal, scale, r), q, k, v)
         else:
             o = _self_attention(cfg, q, k, v, causal, scale, n_rep)
         new_cache = (k, v)
@@ -391,14 +420,16 @@ def _self_attention(cfg: ModelConfig, q, k, v, causal: bool, scale: float, n_rep
     return _attend_chunked(q, k, v, n_rep, scale, causal, smax=smax)
 
 
-def _self_attention_on_local_shards(cfg: ModelConfig, q, k, v, causal: bool, scale: float):
-    """:func:`_self_attention` on each rank's shards (``local_map``):
-    attention is independent over batch rows and heads, so a rank attends
-    its rows with its q heads.  The kernel is a custom op with no DTensor
-    sharding rule, and DTensor's search for a strategy of the torch path's
-    5-d einsums does not end on a 3-d mesh.  Where the q heads are split
-    over a mesh dim that the kv heads are not (fewer kv heads than ranks),
-    a rank takes the kv heads its q heads read, and attends as MHA."""
+def _attention_on_local_shards(cfg: ModelConfig, attend, q, k, v):
+    """``attend(q, k, v, n_rep)`` (self attention, :func:`_self_attention`,
+    or cross attention, :func:`_attend_direct`) on each rank's shards
+    (``local_map``): attention is independent over batch rows and heads,
+    so a rank attends its rows with its q heads.  The kernel is a custom op
+    with no DTensor sharding rule, and DTensor's search for a strategy of
+    the torch path's 5-d einsums does not end on a 3-d mesh.  Where the q
+    heads are split over a mesh dim that the kv heads are not (fewer kv
+    heads than ranks), a rank takes the kv heads its q heads read, and
+    attends as MHA."""
 
     mesh = q.device_mesh
     q_pl = placements_for(q.shape, ("batch", None, "heads", None), mesh)
@@ -412,14 +443,13 @@ def _self_attention_on_local_shards(cfg: ModelConfig, q, k, v, causal: bool, sca
 
     def core(q, k, v):
         if not select:
-            return _self_attention(cfg, q, k, v, causal, scale, n_rep)
+            return attend(q, k, v, n_rep)
         block = 0
         for i in select:  # the rank's block of q heads, in mesh order
             block = block * mesh.size(i) + mesh.get_local_rank(i)
         heads = block * q.shape[2] + torch.arange(q.shape[2], device=q.device)
         idx = heads // n_rep
-        return _self_attention(cfg, q, k.index_select(2, idx), v.index_select(2, idx),
-                               causal, scale, 1)
+        return attend(q, k.index_select(2, idx), v.index_select(2, idx), 1)
 
     return on_local_shards(core, list(q_pl), (q_pl, kv_pl, kv_pl), q, k, v)
 
@@ -445,10 +475,7 @@ def _decode_on_local_shards(cfg: ModelConfig, q, k, v, ck, cv, pos: int, scale: 
     # the token's k/v and q: batch split as the cache's, heads whole
     row_pl = [Shard(0) if p == Shard(0) else Replicate() for p in c_pl]
     s_l = ck.to_local().shape[1]
-    block = 0
-    for i in seq_dims:  # the rank's block of the sequence, in mesh order
-        block = block * mesh.size(i) + mesh.get_local_rank(i)
-    first = block * s_l
+    first = _block_of(mesh, c_pl, 1)[0] * s_l  # the rank's first position
     if first <= pos < first + s_l:
         for cache, new in ((ck, k), (cv, v)):
             cache.to_local()[:, pos - first: pos - first + 1] = \
@@ -730,37 +757,59 @@ def _scan_chunk(h, d, bm, cm, xc, *, A_full=None, A_head=None, headdim=1):
     return y.to(xc.dtype), hs[:, -1].reshape(b, nh * headdim, n).clone()
 
 
-def _ssm_scan_fused_m1(cfg: ModelConfig, w, xi: torch.Tensor, h0: torch.Tensor, chunk: int):
+def _state_or_zeros(h, x: torch.Tensor, n: int) -> torch.Tensor:
+    """The scan's starting state in f32: ``h``, or zeros (B, C, N) for
+    ``x`` (B, S, C) when there is none."""
+
+    if h is not None:
+        return h.float()
+    return torch.zeros(x.shape[0], x.shape[2], n, dtype=torch.float32, device=x.device)
+
+
+def _ssm_scan_fused_m1(cfg: ModelConfig, w, xi: torch.Tensor, h0, chunk: int, lay=None):
     """Mamba-1 scan with x_proj, dt_proj and softplus run inside each chunk
     (perf lever ``mamba_fused_proj``), the chunk recomputed in the backward
     pass: the full-sequence f32 ``delta`` (B,S,DI) and the (B,S,dr+2n)
     projection never exist, only one chunk's.  Positions past the true
     length get delta 0 (a = 1, bx = 0), so a padded last chunk leaves the
     state as it was; a pad of x alone would not, since softplus(dt_bias) is
-    not 0."""
+    not 0.  ``h0`` ``None`` starts from zeros.  Under a mesh (``lay``) each
+    chunk's x_proj product is summed over the split channels, one
+    all-reduce a chunk, and the rest of the chunk runs on each rank's
+    channels."""
 
     s = xi.shape[1]
     pad = (-s) % chunk
     if pad:
-        xi = F.pad(xi, (0, 0, 0, pad))
+        xi = _on_layout(lay, lambda t: F.pad(t, (0, 0, 0, pad)), "i", ("i",), xi)
     A = -torch.exp(w.A_log.float())  # (DI,N)
     h, ys = h0, []
     for off in range(0, s + pad, chunk):
-        y, h = checkpointed(_fused_chunk_m1, cfg, w, h, xi[:, off: off + chunk], off, s, A)
+        y, h = checkpointed(_fused_step, cfg, w, lay, h, xi[:, off: off + chunk], off, s, A)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :s], h
 
 
-def _fused_chunk_m1(cfg: ModelConfig, w, h, xc, off: int, s: int, A):
-    """One chunk of :func:`_ssm_scan_fused_m1`: its projections, then
-    :func:`_scan_chunk`."""
+def _fused_step(cfg: ModelConfig, w, lay, h, xc, off: int, s: int, A):
+    """One chunk of :func:`_ssm_scan_fused_m1`: its x_proj product, then
+    :func:`_fused_chunk_m1`."""
+
+    return _on_layout(lay, functools.partial(_fused_chunk_m1, cfg, off=off, s=s), ("i", "h"),
+                      ("h", "i", "rows", "cols", "vec", "vec"),
+                      h, xc, _matmul(xc, w.x_proj), w.dt_proj, w.dt_bias, A)
+
+
+def _fused_chunk_m1(cfg: ModelConfig, h, xc, proj, dt_proj, dt_bias, A, *, off: int, s: int):
+    """A chunk of :func:`_ssm_scan_fused_m1` from its x_proj product
+    ``proj``: dt_proj and softplus, then :func:`_scan_chunk`."""
 
     n, dr = cfg.ssm_state, cfg.dt_rank_
-    delta_r, B_c, C_c = _matmul(xc, w.x_proj).split([dr, n, n], dim=-1)
-    delta = F.softplus(_matmul(delta_r, w.dt_proj).float() + w.dt_bias.float())
+    delta_r, B_c, C_c = proj.split([dr, n, n], dim=-1)
+    delta = F.softplus(_matmul(delta_r, dt_proj).float() + dt_bias.float())
     valid = (off + torch.arange(xc.shape[1], device=xc.device) < s)[None, :, None]
     delta = torch.where(valid, delta, 0.0)
-    return _scan_chunk(h, delta, B_c.float(), C_c.float(), xc, A_full=A)
+    return _scan_chunk(_state_or_zeros(h, xc, n), delta, B_c.float(), C_c.float(), xc,
+                       A_full=A)
 
 
 def _ssm_step(delta, B_ssm, C_ssm, xi, h0, *, A_full=None, A_head=None, headdim=1):
@@ -778,46 +827,143 @@ def _ssm_step(delta, B_ssm, C_ssm, xi, h0, *, A_full=None, A_head=None, headdim=
     return y, h1
 
 
+@dataclasses.dataclass(frozen=True)
+class _SSMLayout:
+    """A Mamba block's placements under a mesh, from its (B, S, d_inner)
+    activations' ``("batch", None, "inner")``: the conv and the scan are
+    independent channel by channel, so each rank runs them on its block
+    of d_inner."""
+
+    i: tuple  # (B,S,DI) x, z, delta, y; the Mamba-1 conv window (B,K-1,DI)
+    rows: tuple  # the batch split alone: the block input, B, C, the x_proj product
+    h: tuple  # (B,DI,N) the state
+    cols: tuple  # (*, DI): conv_w, dt_proj
+    vec: tuple  # (DI, ...): conv_b, dt_bias, D, A_log, out_norm
+    whole: tuple  # gathered: in_proj, the Mamba-2's conv and head vectors
+    lo: int  # the rank's first channel
+    ranks: int  # the blocks d_inner splits into
+
+
+def _ssm_layout(cfg: ModelConfig, x: torch.Tensor, unit: int = 1) -> _SSMLayout:
+    """The layout of a block over ``x``; where d_inner's blocks would cut
+    a unit of ``unit`` channels (a Mamba-2 head), d_inner is not split and
+    every rank runs every channel."""
+
+    mesh = x.device_mesh
+    i = placements_for((x.shape[0], x.shape[1], cfg.d_inner), ("batch", None, "inner"), mesh)
+    block, ranks = _block_of(mesh, i, 2)
+    if (cfg.d_inner // ranks) % unit:
+        i, block, ranks = _moved(i, d0=0), 0, 1
+    return _SSMLayout(i=i, rows=_moved(i, d0=0), h=_moved(i, d0=0, d2=1), cols=_moved(i, d2=1),
+                      vec=_moved(i, d2=0), whole=(Replicate(),) * mesh.ndim,
+                      lo=block * (cfg.d_inner // ranks), ranks=ranks)
+
+
+def _on_layout(lay: _SSMLayout | None, fn, outs, ins: tuple, *args):
+    """``fn(*args)`` on plain tensors (``lay`` ``None``); under a mesh on
+    each rank's shards (:func:`on_local_shards`), the arguments and the
+    outputs laid out by the ``lay`` fields that ``ins`` and ``outs`` (a
+    name, or a tuple of names for several outputs) name; a ``None``
+    argument passes as it is."""
+
+    if lay is None:
+        return fn(*args)
+    out_pl = (tuple(list(getattr(lay, o)) for o in outs) if isinstance(outs, tuple)
+              else list(getattr(lay, outs)))
+    in_pl = tuple(None if a is None else getattr(lay, k) for k, a in zip(ins, args, strict=True))
+    return on_local_shards(fn, out_pl, in_pl, *args)
+
+
 def mamba1_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = None):
     """Mamba-1 (S6) block.  x: (B,S,D).  With ``state`` and S == 1 it runs one
     decode step, updating the conv window and the hidden state.  Under
     ``mamba_fused_proj`` a multi-token step runs :func:`_ssm_scan_fused_m1`,
     which comes before ``ssm_impl`` as in the reference: a fused prefill
-    never reaches the ``ssm_scan`` kernel, in either package."""
+    never reaches the ``ssm_scan`` kernel, in either package.
 
-    b, s, _ = x.shape
-    di, n, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    Under a mesh (DTensor ``x``) each rank runs its block of d_inner
+    (:class:`_SSMLayout`): in_proj's columns are split contiguously, so x's
+    channels and z's lie on other ranks; a rank takes its channels of both
+    from the gathered weight or the gathered product (:func:`_in_proj_of`).
+    x_proj contracts over the split channels: its product (delta_r, B, C)
+    is summed over them, one all-reduce a layer, before the scan."""
 
-    xz = constrain(_matmul(x, w.in_proj), "batch", None, "inner")
-    xi, z = xz.chunk(2, dim=-1)  # (B,S,DI) each
+    s = x.shape[1]
+    lay = _ssm_layout(cfg, x) if isinstance(x, DTensor) else None
     prepend = state.conv if state is not None else None
-    xi, conv_tail = _causal_conv1d(xi, w.conv_w, w.conv_b, prepend)
-    xi = constrain(xi, "batch", None, "inner")
-    h0 = (state.h.float() if state is not None
-          else torch.zeros(b, di, n, dtype=torch.float32, device=x.device))
-
+    h0 = state.h if state is not None else None
+    xi, z, conv_tail = _on_layout(lay, functools.partial(_m1_in, lo=lay.lo if lay else 0),
+                                  ("i", "i", "i"), ("rows", "whole", "cols", "vec", "i"),
+                                  *_in_proj_of(lay, x, w.in_proj), w.conv_w, w.conv_b, prepend)
     if cfg.mamba_fused_proj and s > 1:
-        y, h_last = _ssm_scan_fused_m1(cfg, w, xi, h0, min(cfg.scan_chunk, s))
+        y, h_last = _ssm_scan_fused_m1(cfg, w, xi, h0, min(cfg.scan_chunk, s), lay)
     else:
-        delta_r, B_ssm, C_ssm = _matmul(xi, w.x_proj).split([dr, n, n], dim=-1)
-        delta = F.softplus(_matmul(delta_r, w.dt_proj).float() + w.dt_bias.float())  # (B,S,DI)
-        delta = constrain(delta, "batch", None, "inner")
-        A = -torch.exp(w.A_log.float())  # (DI,N)
-        B32, C32 = B_ssm.float().contiguous(), C_ssm.float().contiguous()
-        if s == 1:
-            y, h_last = _ssm_step(delta, B32, C32, xi, h0, A_full=A)
-        elif cfg.ssm_impl == "kernel":
-            if state is not None:
-                raise ValueError("the scan kernel starts from h = 0; a multi-token "
-                                 "step from a state needs ssm_impl='torch'")
-            y, h_last = ssm_scan_op(delta, B32, C32, xi, A, block_d=min(512, di),
-                                    chunk=min(cfg.scan_chunk, s))
-        else:
-            y, h_last = _ssm_scan(delta, B32, C32, xi, h0, min(cfg.scan_chunk, s), A_full=A)
-    y = y + xi * w.D[None, None, :].to(x.dtype)
-    y = y * F.silu(z)
+        y, h_last = _on_layout(lay, functools.partial(_m1_scan, cfg), ("i", "h"),
+                               ("i", "rows", "cols", "vec", "vec", "h"),
+                               xi, _matmul(xi, w.x_proj), w.dt_proj, w.dt_bias, w.A_log, h0)
+    y = _on_layout(lay, _m1_gate, "i", ("i", "i", "i", "vec"), y, xi, z, w.D)
     return constrain(_matmul(y, w.out_proj), "batch", None, None), SSMState(conv=conv_tail,
                                                                           h=h_last)
+
+
+def _in_proj_of(lay: _SSMLayout | None, x, in_proj) -> tuple:
+    """What a Mamba block's ranks take of in_proj: ``(x, in_proj)``, the
+    weight gathered, each rank multiplying by its channels' columns; or,
+    in a decode step (one token a row), ``(x @ in_proj, None)``, the
+    product split as tensor parallelism splits it and then gathered: a few
+    rows' bytes, not the weight's."""
+
+    if lay is None or x.shape[1] > 1:
+        return x, in_proj
+    return _matmul(x, in_proj), None
+
+
+def _m1_in(x, in_proj, conv_w, conv_b, prepend, *, lo: int = 0):
+    """A Mamba-1 block's x, after its causal conv, and z (B,S,C), and the
+    conv window, over channels [lo, lo + C) of d_inner, C being conv_w's
+    (all of them, or a rank's block); ``in_proj`` ``None``: ``x`` is
+    in_proj's whole product."""
+
+    dl = conv_w.shape[1]
+    if in_proj is None:
+        di = x.shape[-1] // 2
+        xi, z = x[..., lo: lo + dl], x[..., di + lo: di + lo + dl]
+    else:
+        di = in_proj.shape[1] // 2
+        if dl != di:  # the rank's channels of x and of z
+            in_proj = torch.cat([in_proj[:, lo: lo + dl], in_proj[:, di + lo: di + lo + dl]],
+                                dim=1)
+        xi, z = _matmul(x, in_proj).chunk(2, dim=-1)
+    xi, tail = _causal_conv1d(xi, conv_w, conv_b, prepend)
+    return xi, z, tail
+
+
+def _m1_scan(cfg: ModelConfig, xi, proj, dt_proj, dt_bias, A_log, h0):
+    """A Mamba-1 block's scan from its x_proj product ``proj``
+    (B,S,dr+2n): delta, then one decode step (S == 1), the ``ssm_scan``
+    kernel (``ssm_impl="kernel"``, from h = 0) or the chunked torch scan
+    from ``h0`` (``None``: zeros).  Returns (y, h_last)."""
+
+    s, n, dr = xi.shape[1], cfg.ssm_state, cfg.dt_rank_
+    delta_r, B_ssm, C_ssm = proj.split([dr, n, n], dim=-1)
+    delta = F.softplus(_matmul(delta_r, dt_proj).float() + dt_bias.float())  # (B,S,DI)
+    A = -torch.exp(A_log.float())  # (DI,N)
+    B32, C32 = B_ssm.float().contiguous(), C_ssm.float().contiguous()
+    if s == 1:
+        return _ssm_step(delta, B32, C32, xi, _state_or_zeros(h0, xi, n), A_full=A)
+    if cfg.ssm_impl == "kernel":
+        if h0 is not None:
+            raise ValueError("the scan kernel starts from h = 0; a multi-token "
+                             "step from a state needs ssm_impl='torch'")
+        # block_d from the channels here: a rank's block under a mesh
+        return ssm_scan_op(delta, B32, C32, xi.contiguous(), A, block_d=min(512, xi.shape[2]),
+                           chunk=min(cfg.scan_chunk, s))
+    return _ssm_scan(delta, B32, C32, xi, _state_or_zeros(h0, xi, n), min(cfg.scan_chunk, s),
+                     A_full=A)
+
+
+def _m1_gate(y, xi, z, D):
+    return (y + xi * D[None, None, :].to(xi.dtype)) * F.silu(z)
 
 
 # ---------------------------------------------------------------------------
@@ -829,32 +975,107 @@ def mamba2_block(cfg: ModelConfig, w, x: torch.Tensor, state: SSMState | None = 
     C, and A is a scalar per head; heads are contiguous channel blocks of
     the (B, S, d_inner) activation.  x: (B,S,D).  With ``state`` and S == 1
     it runs one decode step, updating the conv window (over x, B and C
-    together) and the hidden state."""
+    together) and the hidden state.
 
-    b, s, _ = x.shape
+    Under a mesh (DTensor ``x``) each rank runs its block of d_inner, whole
+    heads (:class:`_SSMLayout`; every head where they do not divide over
+    the ranks): in_proj's columns (z, x, B, C and the head
+    deltas) and the conv's (x, B and C) are split off the head
+    boundaries, so a rank takes its heads' columns, with B and C whole, of
+    the gathered weights or product (:func:`_in_proj_of`); the conv window
+    over all channels comes from the last inputs, the same on every
+    rank.  The output norm sums squares over
+    the split channels, one all-reduce a layer."""
+
+    lay = _ssm_layout(cfg, x, cfg.mamba_headdim) if isinstance(x, DTensor) else None
+    mix = functools.partial(_m2_mix, cfg, lo=lay.lo if lay else 0,
+                            channels=cfg.d_inner // (lay.ranks if lay else 1))
+    y, h_last, conv_tail = _on_layout(
+        lay, mix, ("i", "h", "rows"),
+        ("rows", "whole", "whole", "whole", "rows", "whole", "whole", "whole", "h"),
+        *_in_proj_of(lay, x, w.in_proj), w.conv_w, w.conv_b,
+        state.conv if state is not None else None,
+        w.dt_bias, w.A_log, w.D, state.h if state is not None else None)
+    if lay is None:
+        y = rms_norm(y, w.out_norm, cfg.norm_eps)
+    else:
+        y = _rms_norm_on_local_shards(lay, y, w.out_norm, cfg.norm_eps, cfg.d_inner)
+    return constrain(_matmul(y, w.out_proj), "batch", None, None), SSMState(conv=conv_tail,
+                                                                          h=h_last)
+
+
+def _m2_mix(cfg: ModelConfig, x, in_proj, conv_w, conv_b, prepend, dt_bias, A_log, D, h0, *,
+            lo: int, channels: int):
+    """A Mamba-2 block up to its output norm over channels [lo, lo +
+    channels) of d_inner (whole heads): z, x, B, C and the heads' deltas
+    from in_proj (``None``: ``x`` is its whole product), the causal conv
+    over x, B and C, the scan (one decode step when S == 1) from ``h0``
+    (``None``: zeros) and the gate.  Returns (y (B,S,C), h_last (B,C,N)
+    f32, the conv window (B,K-1,DI+2N))."""
+
     di, n, p = cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim
-
-    z, xBC, delta_in = _matmul(x, w.in_proj).split([di, di + 2 * n, cfg.mamba_heads], dim=-1)
-    z = constrain(z, "batch", None, "inner")
-    prepend = state.conv if state is not None else None
-    xBC, conv_tail = _causal_conv1d(xBC, w.conv_w, w.conv_b, prepend)
-    xi, B_ssm, C_ssm = xBC.split([di, n, n], dim=-1)
-    xi = constrain(xi, "batch", None, "inner")
-
-    delta = F.softplus(delta_in.float() + w.dt_bias.float())  # (B,S,H)
-    A = -torch.exp(w.A_log.float())  # (H,)
-    h0 = (state.h.float() if state is not None
-          else torch.zeros(b, di, n, dtype=torch.float32, device=x.device))
+    s, k = x.shape[1], conv_w.shape[0]
+    heads = slice(lo // p, (lo + channels) // p)
+    cols, cw, cb, pre = None, conv_w, conv_b, prepend
+    if channels != di:  # the rank's heads of z, x and the deltas; B and C whole
+        dev = x.device
+        # the conv's channels: x's [0, di), then B and C
+        conv_cols = torch.cat([torch.arange(lo, lo + channels, device=dev),
+                               torch.arange(di, di + 2 * n, device=dev)])
+        # in_proj's: z's [0, di), the conv's from di, the deltas' from 2 di + 2 n
+        cols = torch.cat([torch.arange(lo, lo + channels, device=dev), conv_cols + di,
+                          torch.arange(heads.start, heads.stop, device=dev) + 2 * di + 2 * n])
+        cw, cb = conv_w.index_select(1, conv_cols), conv_b.index_select(0, conv_cols)
+        pre = None if prepend is None else prepend.index_select(2, conv_cols)
+    if in_proj is None:
+        proj = x if cols is None else x.index_select(-1, cols)
+    else:
+        proj = _matmul(x, in_proj if cols is None else in_proj.index_select(1, cols))
+    z, xBC, delta_in = proj.split([channels, channels + 2 * n, heads.stop - heads.start],
+                                  dim=-1)
+    xBC, tail = _causal_conv1d(xBC, cw, cb, pre)
+    if cols is not None:  # the window over every channel, from the last K-1 inputs
+        last = x[:, max(0, s - (k - 1)):]
+        raw = (last[..., di: 2 * di + 2 * n] if in_proj is None
+               else _matmul(last, in_proj[:, di: 2 * di + 2 * n]))
+        tail = _conv_window(raw, prepend, k)
+    xi, B_ssm, C_ssm = xBC.split([channels, n, n], dim=-1)
+    delta = F.softplus(delta_in.float() + dt_bias[heads].float())  # (B,S,H)
+    A = -torch.exp(A_log[heads].float())  # (H,)
+    h0 = _state_or_zeros(h0, xi, n)
     B32, C32 = B_ssm.float().contiguous(), C_ssm.float().contiguous()
     if s == 1:
         y, h_last = _ssm_step(delta, B32, C32, xi, h0, A_head=A, headdim=p)
     else:
         y, h_last = _ssm_scan(delta, B32, C32, xi, h0, min(cfg.scan_chunk, s), A_head=A,
                               headdim=p)
-    y = y + xi * w.D.repeat_interleave(p)[None, None, :].to(x.dtype)
-    y = rms_norm(y * F.silu(z), w.out_norm, cfg.norm_eps)
-    return constrain(_matmul(y, w.out_proj), "batch", None, None), SSMState(conv=conv_tail,
-                                                                          h=h_last)
+    y = y + xi * D[heads].repeat_interleave(p)[None, None, :].to(xi.dtype)
+    return y * F.silu(z), h_last, tail
+
+
+def _conv_window(new, prepend, k: int) -> torch.Tensor:
+    """The conv window (B, K-1, C) a causal conv leaves over inputs whose
+    last K-1 (or fewer) rows are ``new``, after ``prepend`` (``None``:
+    zeros)."""
+
+    pad = (torch.zeros(new.shape[0], k - 1, new.shape[2], dtype=new.dtype, device=new.device)
+           if prepend is None else prepend.to(new.dtype))
+    return torch.cat([pad, new], dim=1)[:, -(k - 1):].clone()
+
+
+def _rms_norm_on_local_shards(lay: _SSMLayout, x, scale, eps: float, width: int):
+    """:func:`rms_norm` over a last dim of ``width`` split as ``lay.i``:
+    each rank's sum of squares, summed over the split (a partial sum,
+    one all-reduce), then each rank normalises its channels."""
+
+    partial = [Partial() if p == Shard(2) else p for p in lay.i]
+    sq = on_local_shards(lambda t: torch.sum(t.float() * t.float(), dim=-1, keepdim=True),
+                         partial, (lay.i,), x)
+
+    def normed(t, sq, sc):
+        return ((t.float() * torch.rsqrt(sq / width + eps)) * sc.float()).to(t.dtype)
+
+    return on_local_shards(normed, list(lay.i), (lay.i, lay.rows, lay.vec), x, sq, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -870,23 +1091,36 @@ def embed_tokens(cfg: ModelConfig, emb: torch.Tensor, tokens: torch.Tensor) -> t
     activation dtype (torch multiplies no fp8 operands), which holds its
     values exactly."""
 
-    if not cfg.embed_onehot:
-        rows = _lookup_on_local_shards(emb, tokens) if isinstance(emb, DTensor) else emb[tokens]
-        return constrain(rows.to(dtype_of(cfg)), "batch", None, None)
-    dt = emb.dtype if emb.dtype.itemsize > 1 else dtype_of(cfg)
-    onehot = torch.zeros(*tokens.shape, emb.shape[0], dtype=dt, device=emb.device)
-    onehot.scatter_(-1, tokens[..., None].long(), 1)
-    return constrain((onehot @ emb.to(dt)).to(dtype_of(cfg)), "batch", None, None)
+    dt = None
+    if cfg.embed_onehot:
+        dt = emb.dtype if emb.dtype.itemsize > 1 else dtype_of(cfg)
+    if isinstance(emb, DTensor):
+        rows = _lookup_on_local_shards(emb, tokens, dt)
+    else:
+        rows = emb[tokens] if dt is None else _onehot_product(emb, tokens, dt)
+    return constrain(rows.to(dtype_of(cfg)), "batch", None, None)
 
 
-def _lookup_on_local_shards(emb, tokens):
+def _onehot_product(table, toks, dt: torch.dtype, inside=None):
+    """The one-hot of ``toks`` in ``dt`` times ``table``; the rows where
+    ``inside`` is false are zeros."""
+
+    onehot = torch.zeros(*toks.shape, table.shape[0], dtype=dt, device=table.device)
+    onehot.scatter_(-1, toks[..., None].long(), 1 if inside is None else inside[..., None].to(dt))
+    return onehot @ table.to(dt)
+
+
+def _lookup_on_local_shards(emb, tokens, onehot_dtype: torch.dtype | None = None):
     """``emb[tokens]`` on each rank's shards (``local_map``): the table's
     embed dim gathered first (FSDP), each rank's tokens looked up in its
-    vocab rows, zeros for tokens whose row another rank holds, the rows a
-    partial sum over the vocab's mesh dims (one rank adds each token's row,
-    the others zeros, so the sum is the row exactly).  DTensor's index op
-    has no strategy for a table split on its embed dim, and its index_put
-    (the backward) fails on a split table in some torch versions."""
+    vocab rows (by a one-hot product in ``onehot_dtype`` if given, the
+    one-hot of the rank's rows alone), zeros for tokens whose row another
+    rank holds, the rows a partial sum over the vocab's mesh dims (one
+    rank adds each token's row, the others zeros, so the sum is the row
+    exactly).  DTensor's index op has no strategy for a table split on its
+    embed dim, and its index_put (the backward) fails on a split table in
+    some torch versions; a one-hot made whole would be a plain tensor
+    beside DTensors."""
 
     mesh = emb.device_mesh
     t_pl = placements_for(emb.shape, ("vocab", None), mesh)
@@ -895,15 +1129,15 @@ def _lookup_on_local_shards(emb, tokens):
     if any(tok_pl[i] != Replicate() for i in vocab_dims):
         raise NotImplementedError("batch and vocab split over one mesh dim")
     out_pl = [Partial() if i in vocab_dims else p for i, p in enumerate(tok_pl)]
+    block, _ = _block_of(mesh, t_pl, 0)  # the rank's block of vocab rows
 
     def lookup(table, toks):
-        block = 0
-        for i in vocab_dims:  # the rank's block of vocab rows, in mesh order
-            block = block * mesh.size(i) + mesh.get_local_rank(i)
         local = toks - block * table.shape[0]
         inside = (local >= 0) & (local < table.shape[0])
-        rows = table[torch.where(inside, local, 0)]
-        return torch.where(inside[..., None], rows, 0)
+        safe = torch.where(inside, local, 0)
+        if onehot_dtype is not None:
+            return _onehot_product(table, safe, onehot_dtype, inside)
+        return torch.where(inside[..., None], table[safe], 0)
 
     return on_local_shards(lookup, out_pl, (t_pl, tok_pl), emb, tokens)
 
@@ -947,10 +1181,9 @@ def _nll_on_local_shards(logits, labels):
     def reduced(op):
         return [Partial(op) if i in vocab_dims else p for i, p in enumerate(row_pl)]
 
+    block, _ = _block_of(mesh, l_pl, 2)  # the rank's block of the vocab
+
     def picked(x, lab):
-        block = 0
-        for i in vocab_dims:  # the rank's block of the vocab, in mesh order
-            block = block * mesh.size(i) + mesh.get_local_rank(i)
         local = lab - block * x.shape[-1]
         inside = (local >= 0) & (local < x.shape[-1])
         got = torch.gather(x.float(), -1, torch.where(inside, local, 0)[..., None])[..., 0]

@@ -1,10 +1,12 @@
 """Attention-free SSM LM (falcon-mamba-7b family, Mamba-1 blocks), trained
-and served on one card.  With ``cfg.remat == "block"`` each block is
-recomputed in the backward pass.
+and served on one card or, with DTensor parameters and inputs, on a mesh
+(each rank runs the conv and the scan on its channels: ``layers.mamba1_block``).
+With ``cfg.remat == "block"`` each block is recomputed in the backward pass.
 
 Decode state is O(1) in context length: the conv window (K-1 inputs) and
 the SSM hidden state (d_inner x state) per layer, kept in the reference's
-stacked layout ``{"conv": (L,B,K-1,DI), "h": (L,B,DI,N) f32}``.
+stacked layout ``{"conv": (L,B,K-1,DI), "h": (L,B,DI,N) f32}``; under a mesh
+both come out laid out as ``cache_axes`` gives them.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ import time
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..distributed.sharding import distribute, distribute_module, use_mesh
 from ..launch.serve import pad_cache
@@ -48,46 +49,64 @@ def _rules(cfg) -> dict | None:
 
 def sharded_steps(cfg, tree: dict, batch: dict, mesh=None, *, device="cpu",
                   decode_steps: int = 3, lr: float = 1e-3,
-                  compression: CompressionConfig | None = None) -> dict:
+                  compression: CompressionConfig | None = None, serve_first: bool = False,
+                  decode_tokens: torch.Tensor | None = None) -> dict:
     """The port's steps of ``cfg`` from the reference-layout weights
     ``tree`` and ``batch`` (``tokens``, ``labels`` and a frontend input,
     all (B, ...) tensors): one AdamW step (``lr``) on the torch paths (the
     kernels have no backward pass; gradient ``compression`` if given),
-    then from the updated weights a
-    prefill of ``tokens`` and ``decode_steps`` greedy steps as ``cfg``
-    runs them (its ``attention_impl``).
+    then from the updated weights (from ``tree``'s, before the step, with
+    ``serve_first``) a prefill of ``tokens`` and ``decode_steps`` decode
+    steps as ``cfg`` runs them (its ``attention_impl``), each fed the
+    previous step's greedy token or, given ``decode_tokens`` (B,
+    decode_steps), its column of them.
     Returns ``loss``, ``grad_norm``, ``params`` (the updated weights in the
-    reference's layout), ``prefill_logits``, ``cache`` (the prefill's) and
-    ``decode_logits`` (a list), all whole, on the CPU."""
+    reference's layout), ``prefill_logits``, ``cache`` (the prefill's),
+    ``decode_logits`` (a list) and ``decode_tokens`` (the tokens the
+    decode steps were fed), all whole, on the CPU."""
 
     model = get_model(cfg, device)
     trainer = get_model(dataclasses.replace(cfg, attention_impl="torch", ssm_impl="torch"),
                         device)
     params = params_from_jax(cfg, tree, device=device)
     batch = {k: v.to(device) for k, v in batch.items()}
+    out = {}
     with use_mesh(mesh, _rules(cfg)) if mesh is not None else contextlib.nullcontext():
         if mesh is not None:
             distribute_module(params, named_param_axes(cfg, params), mesh)
             axes = input_axes(cfg, "train")
             batch = {k: distribute(v, axes[k], mesh) for k, v in batch.items()}
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+        if serve_first:
+            out.update(_serve(model, params, prompt, decode_steps, decode_tokens))
         step = make_train_step(trainer, AdamWConfig(lr=lr), compression)
         params, _, metrics = step(params, init_state(dict(params.named_parameters())), batch)
         params.requires_grad_(False)
-        out = {"loss": whole(metrics["loss"]), "grad_norm": whole(metrics["grad_norm"]),
-               "params": {k: whole(v) for k, v in _flat(tree_from_params(params)).items()}}
-        with torch.no_grad():
-            prompt = {k: v for k, v in batch.items() if k != "labels"}
-            logits, cache = make_prefill_step(model)(params, prompt)
-            out["prefill_logits"] = whole(logits)
-            out["cache"] = {k: whole(v) for k, v in cache.items()}
-            seq = batch["tokens"].shape[1]
-            cache = pad_cache(cache, decode_steps)
-            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
-            serve_step = make_serve_step(model)
-            out["decode_logits"] = []
-            for i in range(decode_steps):
-                tok, logits, cache = serve_step(params, cache, tok, seq + i)
-                out["decode_logits"].append(whole(logits))
+        out.update(loss=whole(metrics["loss"]), grad_norm=whole(metrics["grad_norm"]),
+                   params={k: whole(v) for k, v in _flat(tree_from_params(params)).items()})
+        if not serve_first:
+            out.update(_serve(model, params, prompt, decode_steps, decode_tokens))
+    return out
+
+
+@torch.no_grad()
+def _serve(model, params, prompt: dict, decode_steps: int, decode_tokens) -> dict:
+    logits, cache = make_prefill_step(model)(params, prompt)
+    out = {"prefill_logits": whole(logits), "cache": {k: whole(v) for k, v in cache.items()},
+           "decode_logits": [], "decode_tokens": []}
+    seq = prompt["tokens"].shape[1]
+    cache = pad_cache(cache, decode_steps)
+    tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+    serve_step = make_serve_step(model)
+    for i in range(decode_steps):
+        if decode_tokens is not None:
+            tok = decode_tokens[:, i: i + 1].to(tok.device)
+            if isinstance(prompt["tokens"], DTensor):
+                tok = distribute(tok, ("batch", None))
+        out["decode_tokens"].append(whole(tok))
+        tok, logits, cache = serve_step(params, cache, tok, seq + i)
+        out["decode_logits"].append(whole(logits))
+    out["decode_tokens"] = torch.cat(out["decode_tokens"], dim=1)
     return out
 
 

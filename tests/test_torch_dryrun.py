@@ -11,9 +11,12 @@
     size writes a record with the reference's keys, ``argument_bytes``
     equal to the sum of the reference specs' shard shapes (in the port's
     dtypes: its tokens are int64), the FLOPs and collectives counted on
-    rank 0's local shards.
-(g) ``run_cell`` of an ``ssm``, ``hybrid`` or ``encdec`` arch raises
-    ``NotImplementedError``.
+    rank 0's local shards: for every family (the ``ssm`` and ``hybrid``
+    families' ``long_500k`` cells among them) and for grok-1-314b's
+    hill-climb variants ``onehot_embed`` and ``onehot_replicate``.
+(g) The hill-climb driver's targets are the reference's, and its
+    ``falcon_train`` target runs its first variants (at smoke size, the
+    config lookup patched in the child that runs them).
 
 The fake world starts in a spawned child, never in the test process.
 """
@@ -31,6 +34,7 @@ from repro.configs import SHAPE_CELLS as J_CELLS
 from repro.configs import applicable_cells as jax_applicable_cells
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.distributed.sharding import DEFAULT_RULES
 from repro.distributed.sharding import spec_for as jax_spec_for
 from repro.launch import roofline as JR
 from repro.models import get_model as jax_get_model
@@ -103,9 +107,28 @@ def test_roofline_constants_are_the_h100_datasheet():
 # (f): the dry run on the CPU at smoke size
 # ---------------------------------------------------------------------------
 
-DRY_CELLS = [("qwen3-1.7b", "train_4k", "single"), ("qwen3-1.7b", "decode_32k", "multi"),
-             ("moonshot-v1-16b-a3b", "prefill_32k", "single"),
-             ("internvl2-26b", "train_4k", "multi")]
+# (arch, cell, mesh, config overrides): the smoke configs keep the cells'
+# sequence lengths, so a Mamba train or prefill cell walks thousands of scan
+# chunks of 8 (minutes under FakeTensorMode); the ssm and hybrid families
+# run their decode and long_500k cells here, their train cell in (g)
+GROK_ONEHOT = {"onehot_embed": {"embed_onehot": True},
+               "onehot_replicate": {"embed_onehot": True,
+                                    "shard_rules_override": (("batch", ()),)}}
+DRY_CELLS = [("qwen3-1.7b", "train_4k", "single", {}), ("qwen3-1.7b", "decode_32k", "multi", {}),
+             ("moonshot-v1-16b-a3b", "prefill_32k", "single", {}),
+             ("internvl2-26b", "train_4k", "multi", {}),
+             ("falcon-mamba-7b", "long_500k", "single", {}),
+             ("falcon-mamba-7b", "decode_32k", "multi", {}),
+             ("zamba2-2.7b", "long_500k", "multi", {}),
+             ("zamba2-2.7b", "decode_32k", "single", {}),
+             ("whisper-tiny", "train_4k", "single", {}),
+             ("whisper-tiny", "decode_32k", "multi", {}),
+             ("grok-1-314b", "prefill_32k", "single", GROK_ONEHOT["onehot_embed"]),
+             ("grok-1-314b", "decode_32k", "single", GROK_ONEHOT["onehot_replicate"])]
+
+
+def _smoke(arch: str, overrides: dict):
+    return dataclasses.replace(get_smoke_config(arch), **overrides)
 
 
 def _dry_cells(cells, out_dir: str) -> list:
@@ -117,8 +140,9 @@ def _dry_cells(cells, out_dir: str) -> list:
 
     from repro_torch.launch.mesh import fake_world, make_production_mesh
 
-    out = [dryrun.run_cell(arch, cell, mesh, out_dir, override_cfg=get_smoke_config(arch),
-                           device="cpu") for arch, cell, mesh in cells]
+    out = [dryrun.run_cell(arch, cell, mesh, out_dir, override_cfg=_smoke(arch, ov),
+                           tag=f"__{i}", device="cpu")
+           for i, (arch, cell, mesh, ov) in enumerate(cells)]
     with fake_world(512):
         mesh = make_production_mesh(device_type="cpu")
         x = distribute_tensor(torch.zeros(64, 256), mesh, [Shard(0), Shard(1)],
@@ -136,8 +160,8 @@ def dry_records():
         return spawn_world(1, tmp, _dry_cells, DRY_CELLS, tmp, group=False)[0]
 
 
-def _shard_numel(shape, logical, mesh) -> int:
-    spec = jax_spec_for(shape, logical, mesh)
+def _shard_numel(shape, logical, mesh, rules=None) -> int:
+    spec = jax_spec_for(shape, logical, mesh, rules)
     n = 1
     for dim, entry in zip(shape, spec):
         axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
@@ -155,25 +179,30 @@ class FakeMesh:
 MESHES = {"single": FakeMesh(data=16, model=16), "multi": FakeMesh(pod=2, data=16, model=16)}
 
 
-def _argument_bytes(arch: str, cell_name: str, mesh_kind: str) -> int:
+def _argument_bytes(arch: str, cell_name: str, mesh_kind: str, overrides: dict) -> int:
     """The sum over the reference's leaves of its spec's shard shape, each in
     the port's dtype of that leaf."""
 
-    jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **overrides)
+    cfg = _smoke(arch, overrides)
+    rules = {**DEFAULT_RULES, **dict(cfg.shard_rules_override)}
     mesh, cell = MESHES[mesh_kind], J_CELLS[cell_name]
     jm = jax_get_model(jcfg)
-    param_itemsize = torch.empty(0, dtype=getattr(torch, cfg.dtype)).element_size()
+    # the port's dtype of each leaf name (the Mamba families store A_log, and
+    # the hybrid dt_bias, in f32, as the reference's init does)
+    dtypes = {name.rpartition(".")[2]: p.element_size()
+              for name, p in get_model(cfg, "cpu").abstract_params().named_parameters()}
     total = 0
 
-    def walk(abstract, axes, itemsize):
+    def walk(abstract, axes, itemsize=None):
         nonlocal total
         for k, v in abstract.items():
             if isinstance(v, dict):
                 walk(v, axes[k], itemsize)
             else:
-                total += _shard_numel(v.shape, axes[k], mesh) * itemsize
+                total += _shard_numel(v.shape, axes[k], mesh, rules) * (itemsize or dtypes[k])
 
-    walk(jm.abstract_params(), jm.param_axes(), param_itemsize)
+    walk(jm.abstract_params(), jm.param_axes())
     if cell.kind == "train":
         walk(jm.abstract_params(), jm.param_axes(), 4)  # m
         walk(jm.abstract_params(), jm.param_axes(), 4)  # v
@@ -182,30 +211,31 @@ def _argument_bytes(arch: str, cell_name: str, mesh_kind: str) -> int:
     jspecs = jax_input_specs(jcfg, cell.kind, cell.global_batch, cell.seq_len)
     axes = jax_input_axes(jcfg, cell.kind)
     for k, t in jspecs.items():
-        total += _shard_numel(t.shape, axes[k], mesh) * specs[k].element_size()
+        total += _shard_numel(t.shape, axes[k], mesh, rules) * specs[k].element_size()
     if cell.kind == "decode":
         cache = get_model(cfg, "cpu").abstract_cache(cell.global_batch, cell.seq_len)
         jcache, caxes = jm.abstract_cache(cell.global_batch, cell.seq_len), jm.cache_axes()
         for k, t in jcache.items():
-            total += _shard_numel(t.shape, caxes[k], mesh) * cache[k].element_size()
+            total += _shard_numel(t.shape, caxes[k], mesh, rules) * cache[k].element_size()
     return total
 
 
 @pytest.mark.parametrize("i", range(len(DRY_CELLS)),
-                         ids=["-".join(c) for c in DRY_CELLS])
+                         ids=["-".join(c[:3]) + "".join(f"-{k}" for k in c[3]) for c in DRY_CELLS])
 def test_cpu_dry_run_record(dry_records, i):
-    arch, cell, mesh = DRY_CELLS[i]
+    arch, cell, mesh, overrides = DRY_CELLS[i]
     rec = dry_records[0][i]
     for key in RECORD_KEYS:
         assert key in rec, key
     assert rec["status"] == "ok" and rec["device"] == "cpu"
     assert rec["calibration"] is None and rec["roofline_raw"] == rec["roofline"]
     assert rec["memory"]["peak_allocated_bytes"] is None
-    assert rec["memory"]["argument_bytes"] == _argument_bytes(arch, cell, mesh)
+    assert rec["memory"]["argument_bytes"] == _argument_bytes(arch, cell, mesh, overrides)
     r = rec["roofline"]
     assert r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
     assert r["dominant"] in ("compute", "memory", "collective")
-    assert rec["model_flops"] == TR.model_flops_per_step(get_smoke_config(arch), SHAPE_CELLS[cell])
+    assert rec["model_flops"] == TR.model_flops_per_step(_smoke(arch, overrides),
+                                                         SHAPE_CELLS[cell])
     assert rec["collectives"]["counts"] and r["link_bytes_per_device"] > 0
     assert r["compute_s"] == r["flops_per_device"] / TR.PEAK_FLOPS
     n = math.prod(rec["mesh_shape"].values())
@@ -228,10 +258,22 @@ def test_recorder_counts_what_dtensor_issues(dry_records):
     assert kinds.count("all-gather") == n_gathers - 1
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b", "whisper-tiny"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dryrun.run_cell(arch, "train_4k", "single", device="cpu")
+FIRST_FALCON_VARIANTS = 3  # rebaseline, fused_proj, fused_chunk512
+
+
+def _falcon_first_variants(out_dir: str) -> list:
+    """Runs in a spawned child: ``run_target("falcon_train")`` over its first
+    variants, the config lookup patched to the smoke falcon-mamba-7b with
+    one scan chunk of the cell's 4,096 tokens (a variant sets its own)."""
+
+    arch, cell, variants = hillclimb.TARGETS["falcon_train"]
+    hillclimb.TARGETS["falcon_train"] = (arch, cell, variants[:FIRST_FALCON_VARIANTS])
+    smoke = dataclasses.replace(get_smoke_config(arch), scan_chunk=4096)
+    hillclimb.get_config = dryrun.get_config = lambda name: smoke
+    rows = hillclimb.run_target("falcon_train", out_dir=out_dir, dryrun_dir=out_dir,
+                                device="cpu")
+    return [(name, rec["status"], rec["roofline"], rec["collectives"]["counts"])
+            for name, rec in rows]
 
 
 def test_hillclimb_targets_copy_the_reference(tmp_path):
@@ -241,6 +283,14 @@ def test_hillclimb_targets_copy_the_reference(tmp_path):
     ns: dict = {}
     exec(src[src.index("TARGETS = {"):src.index("def run_target")], ns)
     assert hillclimb.TARGETS == ns["TARGETS"]
-    with pytest.raises(NotImplementedError):
-        hillclimb.run_target("falcon_train", out_dir=str(tmp_path), dryrun_dir=str(tmp_path),
-                             device="cpu")
+    rows = spawn_world(1, str(tmp_path), _falcon_first_variants, str(tmp_path), group=False)[0]
+    names = [v for v, _ in hillclimb.TARGETS["falcon_train"][2][:FIRST_FALCON_VARIANTS]]
+    assert [r[0] for r in rows] == ["baseline", *names]
+    assert all(r[1] == "ok" and r[2]["flops_per_device"] > 0 for r in rows)
+    for key in ("flops_per_device", "link_bytes_per_device"):  # rebaseline: the baseline's
+        assert rows[1][2][key] == rows[0][2][key]
+    assert rows[1][3] == rows[0][3]
+    # the fused projections sum x_proj's product over the split channels a
+    # chunk at a time: more all-reduces, the chunk's
+    assert rows[2][3]["all-reduce"] > rows[1][3]["all-reduce"]
+    assert rows[3][3]["all-reduce"] > rows[2][3]["all-reduce"]

@@ -223,6 +223,63 @@ def test_params_from_jax_needs_cuda_by_default(no_cuda, arch):
         assert b.device.type == "cpu" and torch.equal(a, b), name
 
 
+_BLOCKED_MESH = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import dataclasses, tempfile
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import dryrun, hillclimb
+from repro_torch.models import frontend_inputs, get_model
+from repro_torch.models.convert import tree_from_params
+from repro_torch.testing.sharded import sharded_steps
+for arch, cell in (("falcon-mamba-7b", "long_500k"), ("zamba2-2.7b", "long_500k"),
+                   ("whisper-tiny", "decode_32k")):
+    rec = dryrun.run_cell(arch, cell, "single", tempfile.mkdtemp(),
+                          override_cfg=get_smoke_config(arch), device="cpu")
+    assert rec["status"] == "ok" and rec["collectives"]["counts"], (arch, cell)
+assert "falcon_train" in hillclimb.TARGETS
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+for arch, lever in (("falcon-mamba-7b", {}), ("falcon-mamba-7b", {"mamba_fused_proj": True}),
+                    ("zamba2-2.7b", {}), ("whisper-tiny", {}), ("qwen3-1.7b", {"embed_onehot": True})):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **lever)
+    tree = tree_from_params(get_model(cfg, "cpu").init_params(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **frontend_inputs(cfg, 2, 2, "cpu")}
+    kw = dict(decode_steps=2, serve_first=True)
+    plain = sharded_steps(cfg, tree, batch, None, **kw)
+    out = sharded_steps(cfg, tree, batch, mesh, decode_tokens=plain["decode_tokens"], **kw)
+    assert torch.equal(out["decode_tokens"], plain["decode_tokens"]), arch
+    assert torch.allclose(out["loss"], plain["loss"], rtol=1e-5), arch
+    for got, want in zip([out["prefill_logits"], *out["decode_logits"]],
+                         [plain["prefill_logits"], *plain["decode_logits"]], strict=True):
+        assert torch.allclose(got, want, atol=1e-5, rtol=1e-5), arch
+dist.destroy_process_group()
+assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
+               if sys.modules[m] is not None)
+print("ok")
+"""
+
+
+def test_sharded_families_run_with_jax_and_reference_blocked():
+    """The ssm, hybrid and encoder-decoder families' dry runs and sharded
+    steps (and the one-hot embedding's) run on a one-rank ``gloo`` mesh
+    with JAX and the reference blocked, served before the train step and
+    fed the plain run's decode tokens, as ``chip_smoke.py`` runs them,
+    equal to the plain steps."""
+
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_MESH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.rstrip().endswith("ok")
+
+
 def test_scan_covers_the_model_modules():
     names = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
     assert {"models/hybrid.py", "models/mamba.py", "models/transformer.py",

@@ -15,9 +15,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    int64 range, which takes the kernel's wide branch, and packed and wide
    rows in one launch), then at widths that are not powers of two
    (3, 17, 96, 1000: the padded branch) and above 1024 (1025, 2048, 3000,
-   4096, 8192: the long-row kernel), ``stream_stats`` with and without
-   per-row true lengths, and check that widths above the limit are
-   refused; hold ``flash_attention`` and ``ssm_scan`` against their plain
+   4096, 8192: the long-row kernel, the rows of its exact branch counted
+   as predicted), ``stream_stats`` with and without per-row true lengths,
+   and check that widths above the limit are refused; hold
+   ``flash_attention`` and ``ssm_scan`` against their plain
    versions in f32 and bf16 over the reference tests' shapes, GQA/MQA,
    causal or not, Sq != Sk, ragged lengths, every head dim of the
    attention kernel (hd 80 among them) and each served arch's prefill
@@ -71,7 +72,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    failover; each run equal to the same run scored by the NumPy oracle;
    (b)'s healthy node results equal to ``FleetSimulator`` above;
    any-len — the sweep at ``stream_len`` 96 and 2048, one launch each,
-   equal to ``score_backend="numpy"``;
+   equal to ``score_backend="numpy"`` (no row of the 2048 sweep takes the
+   long-row kernel's exact branch);
 5. timings — both stream kernels held bit-equal to their plain versions on
    every shard matrix the sweep feeds them and on their concatenation,
    and on every shape they are timed at; timed at that one-launch shape
@@ -79,7 +81,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    the largest shard's, at the whole trace's and at the sweep's
    one-launch shape at ``stream_len=96``, beside their byte bound, their plain versions and
    ``torch.sort``; and the long-row kernel at the whole trace at
-   ``stream_len=2048``, a row of its own;
+   ``stream_len=2048`` and at ``stream_len=8192``, a row of its own;
 6. serve   — the model main path: ``serve`` of qwen3-1.7b, stablelm-3b,
    starcoder2-3b, phi4-mini-3.8b (dense), zamba2-2.7b (hybrid: Mamba-2
    and a shared attention block), falcon-mamba-7b (Mamba-1),
@@ -236,7 +238,7 @@ from repro_torch.distributed.sharding import placements_for  # noqa: E402
 from repro_torch.models import stacked_param_axes  # noqa: E402
 from repro_torch.testing.sharded import sharded_steps  # noqa: E402
 from repro_torch.testing import golden  # noqa: E402
-from repro_torch.testing.stream_rows import KINDS, stream_rows  # noqa: E402
+from repro_torch.testing.stream_rows import KINDS, long_row_exact, stream_rows  # noqa: E402
 from repro_torch.testing.traces import golden_trace, sweep_trace, trace_fingerprint  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -480,12 +482,13 @@ def phase_any_width(dev: torch.device) -> float:
     """Widths that are not powers of two and widths above 1024, on every
     row kind: both kernels bit-equal to the plain version and to the NumPy
     oracle, ``stream_stats`` also with per-row true lengths; the long-row
-    kernel scores exactly the rows above 1024; widths above the limit
-    raise.  Returns the largest |error|."""
+    kernel scores exactly the rows above 1024, by its exact branch exactly
+    the rows ``long_row_exact`` predicts; widths above the limit raise.
+    Returns the largest |error|."""
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(16)
-    worst, cases, long_total = 0, 0, 0
+    worst, cases, long_total, exact_total = 0, 0, 0, 0
     for kind in KINDS:
         for n in ANY_WIDTHS + LONG_WIDTHS:
             for m in ((37, 300) if n <= 1024 else (5, 37)):
@@ -496,6 +499,7 @@ def phase_any_width(dev: torch.device) -> float:
                 for ln_np in (None, lens):
                     ln = None if ln_np is None else torch.from_numpy(ln_np).to(dev)
                     kernel.long_rows(reset=True)
+                    kernel.long_wide_rows(reset=True)
                     rf_k, _, dist_k = ops.stream_stats_op(o, s, ln)
                     rf_p, dist_p = ref.stream_stats_ref(o, s, ln)
                     checks = [("rf", rf_k, rf_p), ("dist", dist_k, dist_p)]
@@ -515,6 +519,13 @@ def phase_any_width(dev: torch.device) -> float:
                     if long != ((1 + (ln is None)) * m if n > 1024 else 0):
                         fail(f"{kind} ({m}, {n}): {long} rows in the long-row kernel")
                     long_total += long
+                    exact = kernel.long_wide_rows(reset=True)
+                    want = int(long_row_exact(offs, ln_np).sum()) if n > 1024 else 0
+                    if exact != (1 + (ln is None)) * want:
+                        fail(f"{kind} ({m}, {n}) lengths={ln_np is not None}: {exact} rows "
+                             f"in the long-row kernel's exact branch, expected "
+                             f"{(1 + (ln is None)) * want}")
+                    exact_total += exact
                     cases += 1
     for n in (ops.MAX_STREAM_LEN + 1, 2 * ops.MAX_STREAM_LEN):
         z = torch.zeros(2, n, dtype=torch.int64, device=dev)
@@ -525,7 +536,8 @@ def phase_any_width(dev: torch.device) -> float:
         fail(f"width {n} above the kernel's limit was not refused")
     log(f"[kernels] any width: {cases} cases at N in {ANY_WIDTHS + LONG_WIDTHS} "
         f"(stream_stats with and without true lengths) bit-equal to the plain version and "
-        f"the NumPy oracle; {long_total} rows through the long-row kernel; "
+        f"the NumPy oracle; {long_total} rows through the long-row kernel, {exact_total} "
+        f"of them by its exact branch; "
         f"N > {ops.MAX_STREAM_LEN} refused ({time.perf_counter() - t0:.1f} s)")
     return float(worst)
 
@@ -691,7 +703,8 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
     one-launch matrix of the sweep at ``stream_len=96`` (the padded
     branch: a 128-wide sort of 96 requests);
     and, as a row of its own, the long-row kernel on the whole trace at
-    ``stream_len=2048`` (489, 2048).  ``ms``: raw launches back to back in
+    ``stream_len=2048`` (489, 2048) and (``_8192``) at ``stream_len=8192``
+    (123, 8192).  ``ms``: raw launches back to back in
     a CUDA graph on the same inputs (in L2 after the first); ``ms_cold``:
     the same with the inputs rotated over copies that fill twice the L2;
     ``plain_ms``/``library_ms``: device time from the profiler;
@@ -735,8 +748,15 @@ def kernel_timings(dev: torch.device, batch: TraceBatch, worst: float,
                   "launches": any_len[2048]["launches"]["stream_stats"],
                   "max_abs_err": float(max(worst, held_to_plain(o, s, ln, True,
                                                                 "long-row kernel"))),
-                  "main_path": "the sweep at stream_len=2048 (one launch, 489 rows)"}
+                  "main_path": "the sweep at stream_len=2048 (one launch of its 64 shards' "
+                               "512 rows; timed on the whole trace's 489)"}
     long_entry.update(_timed_shape(o, s, ln, True, ""))
+    long_entry["long_rows_sweep"] = any_len[2048]["long_rows"]
+    long_entry["long_wide_rows_sweep"] = any_len[2048]["long_wide_rows"]
+    o, s = (torch.from_numpy(a).to(dev) for a in batch.padded_stream_matrix(8192)[:2])
+    long_entry["max_abs_err"] = float(max(long_entry["max_abs_err"],
+                                          held_to_plain(o, s, None, True, "long-row kernel")))
+    long_entry.update(_timed_shape(o, s, None, True, "_8192"))
     long_entry["library_call"] = out[0]["library_call"]
     out.append(long_entry)
     return out
@@ -1334,8 +1354,10 @@ def phase_service(dev: torch.device, sweep: TraceBatch, host_results: dict) -> d
 
 def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
     """The sweep at ``stream_len`` 96 (the kernel's padded branch) and 2048
-    (its long-row kernel), each launching ``stream_stats`` once and equal,
-    field for field, to the same sweep scored by the NumPy oracle."""
+    (its long-row kernel, no row by its exact branch: the trace's rows
+    need at most one repair round), each launching ``stream_stats`` once
+    and equal, field for field, to the same sweep scored by the NumPy
+    oracle."""
 
     t_phase = time.perf_counter()
     cap = sweep_capacity(batch)
@@ -1343,6 +1365,7 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
     for stream_len in (96, 2048):
         ops.reset_launches()
         kernel.long_rows(reset=True)
+        kernel.long_wide_rows(reset=True)
         t0 = time.perf_counter()
         res = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
                            stream_len=stream_len, ssd_capacity=cap, device=dev).run(batch)
@@ -1350,6 +1373,9 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
         t_first = time.perf_counter() - t0
         launches = dict(ops.launches)
         long = kernel.long_rows(reset=True)
+        exact = kernel.long_wide_rows(reset=True)
+        if exact:
+            fail(f"stream_len={stream_len}: {exact} rows in the long-row kernel's exact branch")
         if launches["stream_stats"] != 1:
             fail(f"stream_len={stream_len}: stream_stats launched "
                  f"{launches['stream_stats']} times, expected 1")
@@ -1363,9 +1389,9 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
             if golden.fleet_result_to_dict(res[s]) != golden.fleet_result_to_dict(oracle[s]):
                 fail(f"stream_len={stream_len} {s}: kernel scoring differs from numpy")
         log(f"[any-len] stream_len={stream_len}: first call {t_first:.3f} s, launches "
-            f"{json.dumps(launches)}, {long} rows in the long-row kernel; equal to "
-            "score_backend='numpy'")
-        out[stream_len] = {"launches": launches, "long_rows": long}
+            f"{json.dumps(launches)}, {long} rows in the long-row kernel ({exact} by its "
+            "exact branch); equal to score_backend='numpy'")
+        out[stream_len] = {"launches": launches, "long_rows": long, "long_wide_rows": exact}
     log(f"[any-len] phase {time.perf_counter() - t_phase:.1f} s")
     return out
 

@@ -18,7 +18,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    for name in ("stream_stats_wide_rows", "stream_stats_long_rows"):
+    for name in ("stream_stats_wide_rows", "stream_stats_long_rows",
+                 "stream_stats_long_wide_rows"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
         fn.restype = ctypes.c_int
@@ -50,3 +51,12 @@ def long_rows(reset: bool = False) -> int:
     a row) has scored since the last reset, summed over every launch."""
 
     return _count("stream_stats_long_rows", reset)
+
+
+def long_wide_rows(reset: bool = False) -> int:
+    """Rows the long-row kernel has scored by its exact branch (rows whose
+    32-bit bucket keys its repair rounds could not put in order; see
+    ``testing.stream_rows.long_row_exact``) since the last reset, summed
+    over every launch."""
+
+    return _count("stream_stats_long_wide_rows", reset)

@@ -8,8 +8,10 @@ that drops the low bits of wide spans: ``collide`` rows put pairs of
 offsets in one such bucket out of order, which the kernel repairs in
 place, ``outlier`` rows (a tight reversed run and one far offset) defeat
 it and take the kernel's exact wide branch, and ``mixed`` matrices put
-such rows beside ordinary ones in one launch.  The CPU tests, the card tests and ``chip_smoke.py`` draw from
-the same kinds.
+such rows beside ordinary ones in one launch.  Above 1024 requests the
+long-row kernel runs the same algorithm over a block of threads;
+:func:`long_row_exact` says which rows take its exact branch.  The CPU
+tests, the card tests and ``chip_smoke.py`` draw from the same kinds.
 """
 
 from __future__ import annotations
@@ -68,3 +70,45 @@ def stream_rows(kind: str, m: int, n: int,
         offs[pick], szs[pick] = wide_o[pick], wide_s[pick]
         return offs, szs
     raise ValueError(f"unknown row kind {kind!r}")
+
+
+def long_row_exact(offs: np.ndarray, lens: np.ndarray | None = None,
+                   fix_rounds: int = 2) -> np.ndarray:
+    """Which rows of an ``(m, n)`` matrix, 1024 < n <= 8192, the long-row
+    kernel scores by its exact branch.  It sorts each row by the 32-bit key
+    ((off - min) >> shift << log2 W) | index at the next power-of-two width
+    W (every bucket bit set past the true length ``lens[i]``), reads the
+    offsets back by index, and puts pairs that a shared bucket left out of
+    (offset, index) order right by up to ``fix_rounds`` rounds of odd-even
+    transposition (kFixRounds); rows still out of order take the exact
+    branch.  Keys are unique, so any sorting network gives this order."""
+
+    m, n = offs.shape
+    log_w = (n - 1).bit_length()
+    w = 1 << log_w
+    length = np.full(m, n) if lens is None else np.clip(lens, 0, n)
+    o = np.zeros((m, w), np.int64)
+    o[:, :n] = offs
+    inert = np.arange(w)[None, :] >= length[:, None]
+    lo = np.where(inert, INT64_MAX, o).min(1, keepdims=True)
+    hi = np.where(inert, INT64_MIN, o).max(1, keepdims=True)
+    span = (hi.view(np.uint64) - lo.view(np.uint64))[:, 0]
+    width = np.array([int(x).bit_length() for x in span])
+    shift = np.maximum(width - (32 - log_w), 0).astype(np.uint64)[:, None]
+    index = np.arange(w, dtype=np.uint64)[None, :]
+    bucket = (o.view(np.uint64) - lo.view(np.uint64)) >> shift
+    key = np.where(inert, np.uint64(0xFFFFFFFF >> log_w), bucket) << np.uint64(log_w) | index
+    ix = (np.sort(key, 1) & np.uint64(w - 1)).astype(np.int64)
+    off = np.take_along_axis(np.where(inert, INT64_MAX, o), ix, 1)
+    for _ in range(fix_rounds):
+        for first in (0, 1):  # (p, p + 1) for even p, then odd p
+            a = np.arange(first, w - 1, 2)
+            swap = _before(off[:, a + 1], ix[:, a + 1], off[:, a], ix[:, a])
+            for arr in (off, ix):
+                lo_, hi_ = arr[:, a].copy(), arr[:, a + 1].copy()
+                arr[:, a], arr[:, a + 1] = np.where(swap, hi_, lo_), np.where(swap, lo_, hi_)
+    return ~_before(off[:, :-1], ix[:, :-1], off[:, 1:], ix[:, 1:]).all(1)
+
+
+def _before(ao, ai, bo, bi):
+    return (ao < bo) | ((ao == bo) & (ai < bi))

@@ -325,7 +325,8 @@ def test_stream_kernel_any_width_and_true_lengths(card, n, kind):
     """Widths that are not powers of two (the padded branch) and above 1024
     (the long-row kernel), on every row kind, with and without per-row true
     lengths: bit-equal to the plain version and to the NumPy oracle on each
-    row's real requests."""
+    row's real requests; the long-row kernel's exact branch takes exactly
+    the rows ``long_row_exact`` predicts."""
 
     rng = np.random.default_rng(n + 77 * stream_rows.KINDS.index(kind))
     m = 37 if n <= 1024 else 5
@@ -337,6 +338,7 @@ def test_stream_kernel_any_width_and_true_lengths(card, n, kind):
     o, s = torch.from_numpy(offs).to(card), torch.from_numpy(szs).to(card)
     ln = torch.from_numpy(lens).to(card)
     rf_kernel.long_rows(reset=True)
+    rf_kernel.long_wide_rows(reset=True)
     rf, pct, dist = rf_ops.stream_stats_op(o, s, ln)
     rf_p, dist_p = rf_ref.stream_stats_ref(o, s, ln)
     assert torch.equal(rf, rf_p) and torch.equal(dist, dist_p)
@@ -344,6 +346,9 @@ def test_stream_kernel_any_width_and_true_lengths(card, n, kind):
     assert np.array_equal(rf.cpu().numpy(), [w[0][0] for w in want])
     assert np.array_equal(dist.cpu().numpy(), [w[2][0] for w in want])
     assert rf_kernel.long_rows(reset=True) == (m if n > 1024 else 0)
+    # the long-row kernel's exact branch takes the rows it cannot repair
+    exact = int(stream_rows.long_row_exact(offs, lens).sum()) if n > 1024 else 0
+    assert rf_kernel.long_wide_rows(reset=True) == exact
 
 
 def test_stream_kernel_refuses_above_its_limit(card):

@@ -348,36 +348,152 @@ def _residual_sums(off, ix, s, length):
     return rf, dist
 
 
+LONG_LOG_K = 4  # long_log_k in csrc/stream_rf.cu: K = 16 positions a thread
+LONG_K = 1 << LONG_LOG_K
+WARP_LOG = LONG_LOG_K + 5  # log2 of the positions a warp holds
+
+
+def _merge_bit(j: int) -> int:
+    """``merge_bit``: the bit of x = t * K + r that holds bit lk - 1 - j of
+    merge lk's coordinate (registers first, then lanes)."""
+
+    return LONG_LOG_K - 1 - j if j < LONG_LOG_K else 2 * LONG_LOG_K + 4 - j
+
+
+def _merge_position(lk: int, x: np.ndarray) -> np.ndarray:
+    """``merge_position``: the position register r of thread t holds
+    (x = t * K + r) while merge lk runs its cross-warp stages."""
+
+    c = x.copy()
+    for j in range(lk - WARP_LOG):
+        hi, lo = lk - 1 - j, _merge_bit(j)
+        differ = ((x >> hi) ^ (x >> lo)) & 1
+        c ^= (differ << hi) | (differ << lo)
+    return np.where((x >> (LONG_LOG_K - 1)) & 1, c ^ ((1 << (lk - 1)) - 1), c)
+
+
+def _slot(p: np.ndarray) -> np.ndarray:
+    """``slot``: the shared-memory word that parks position p."""
+
+    return p ^ ((p >> LONG_LOG_K) & 31)
+
+
+def _long_network(keys: tuple, log_w: int, less) -> tuple:
+    """``long_sort``: the one-way network on keys held at x = t * K + r
+    (``keys``: arrays ``(rows, W)``, ``less(a, b)`` their order).  Merges up
+    to a warp's positions, and every merge's stages of smaller stride, in
+    the plain layout (position x); the next merge's one cross-warp stage,
+    its mirror, reads each partner's parked slot; wider merges re-lay the
+    row through parked slots into the merge layout first, run their
+    cross-warp strides there (register or lane pairs, the smaller key kept
+    where the coordinate bit equals the mirror bit, or is 0 for the mirror
+    stage) and lay it back."""
+
+    x = np.arange(1 << log_w)
+
+    def exchange(keys, theirs, lower):
+        take = lower == less(theirs, keys)
+        return tuple(np.where(take, b, a) for a, b in zip(keys, theirs))
+
+    def parked(keys, at):
+        out = [np.empty_like(k) for k in keys]
+        for k, o in zip(keys, out):
+            o[:, _slot(at)] = k
+        return out
+
+    for lk in range(1, log_w + 1):
+        top = lk - 1
+        if lk == WARP_LOG + 1:
+            m = (1 << lk) - 1
+            theirs = tuple(b[:, _slot(x ^ m)] for b in parked(keys, x))
+            keys = exchange(keys, theirs, ((x >> (lk - 1)) & 1) == 0)
+            top = WARP_LOG - 1
+        elif lk > WARP_LOG:
+            pos = _merge_position(lk, x)
+            keys = tuple(b[:, _slot(pos)] for b in parked(keys, x))
+            for j in range(lk - WARP_LOG):
+                s = _merge_bit(j)
+                cq = (x >> s) & 1
+                lower = cq == (0 if j == 0 else (x >> (LONG_LOG_K - 1)) & 1)
+                keys = exchange(keys, tuple(k[:, x ^ (1 << s)] for k in keys), lower)
+            keys = tuple(b[:, _slot(x)] for b in parked(keys, pos))
+            top = WARP_LOG - 1
+        for lj in range(top, -1, -1):
+            m = (1 << lk) - 1 if lj == lk - 1 else 1 << lj
+            keys = exchange(keys, tuple(k[:, x ^ m] for k in keys), x < (x ^ m))
+    return keys
+
+
+def _textbook_network(o: np.ndarray, ix: np.ndarray, log_w: int):
+    """The long-row kernel's exact branch: (offset, index) pairs sorted in
+    place by the textbook bitonic network, pair (a, a | j) with a's bit j
+    clear, ascending where a's bit k is clear."""
+
+    pos = np.arange(1 << log_w)
+    k = 2
+    while k <= 1 << log_w:
+        j = k >> 1
+        while j:
+            a = pos[(pos & j) == 0]
+            b = a | j
+            swap = _before(o[:, b], ix[:, b], o[:, a], ix[:, a]) == ((a & k) == 0)
+            for arr in (o, ix):
+                lo, hi = arr[:, a].copy(), arr[:, b].copy()
+                arr[:, a], arr[:, b] = np.where(swap, hi, lo), np.where(swap, lo, hi)
+            j >>= 1
+        k <<= 1
+    return o, ix
+
+
 def _emulate_long_rows(offs: np.ndarray, szs: np.ndarray, lens=None):
-    """The long-row kernel (N > 1024): one row a block, the exact
-    (offset, index) bitonic network over W = next power of two positions,
-    positions from the true length on at (INT64_MAX, index)."""
+    """rf, dist and whether each row took the exact branch, as the long-row
+    kernel (N > 1024) computes them: one row a block of T = W / K threads at
+    the next power-of-two width W; min and max over real elements (index
+    below the true length L); element ``r * T + t`` at position
+    ``t * K + r``; the 32-bit key ((off - min) >> shift << log2 W) | index
+    with the shift that makes it fit, every bucket bit set for inert
+    elements; the network of ``_long_network``; offsets read back by index
+    (INT64_MAX for an inert one); up to ``FIX_ROUNDS`` rounds of odd-even
+    transposition while the row is out of (offset, index) order, then the
+    exact branch: ``_textbook_network`` on (offset, index) pairs, inert
+    elements at INT64_MAX.  The count and distance run over sorted
+    positions below L - 1."""
 
     m, n = offs.shape
     log_w = (n - 1).bit_length()
     w = 1 << log_w
+    t_per_row = w // LONG_K
     length = np.full(m, n) if lens is None else np.clip(lens, 0, n)
-    o = np.full((m, w), INT64_MAX)
+    o = np.zeros((m, w), np.int64)
     s = np.zeros((m, w), np.int64)
     o[:, :n], s[:, :n] = offs, szs
-    pos = np.broadcast_to(np.arange(w), (m, w))
-    o = np.where(pos >= length[:, None], INT64_MAX, o)
-    # the textbook network: pair (a, a | j), ascending where a's bit k is clear
-    ix = pos.copy()
-    k = 2
-    while k <= w:
-        j = k >> 1
-        while j:
-            a = np.array([i for i in range(w) if not i & j])
-            b = a | j
-            asc = (a & k) == 0
-            swap = _before(o[:, b], ix[:, b], o[:, a], ix[:, a]) == asc
-            for arr in (o, ix):
-                lo_, hi_ = arr[:, a].copy(), arr[:, b].copy()
-                arr[:, a], arr[:, b] = np.where(swap, hi_, lo_), np.where(swap, lo_, hi_)
-            j >>= 1
-        k <<= 1
-    return _residual_sums(o, ix, s, length)
+    pos = np.arange(w)
+    elem = np.broadcast_to((pos % LONG_K) * t_per_row + pos // LONG_K, (m, w))
+    inert = elem >= length[:, None]
+    held = np.take_along_axis(o, elem, 1)
+    lo = np.where(inert, INT64_MAX, held).min(1, keepdims=True)
+    hi = np.where(inert, np.iinfo(np.int64).min, held).max(1, keepdims=True)
+    width = np.array([int(x).bit_length() for x in (hi.view(U64) - lo.view(U64))[:, 0]])
+    shift = np.maximum(width - (32 - log_w), 0).astype(U64)[:, None]
+
+    rel = held.view(U64) - lo.view(U64)
+    bucket = np.where(inert, U64(0xFFFFFFFF >> log_w), rel >> shift)
+    key = (bucket << U64(log_w) | elem.astype(U64)).astype(np.uint32)
+    (key,) = _long_network((key,), log_w, lambda a, b: a[0] < b[0])
+    ix = (key & np.uint32(w - 1)).astype(np.int64)
+    o_exact = np.where(pos[None, :] >= length[:, None], INT64_MAX, o)
+    off = np.take_along_axis(o_exact, ix, 1)
+    for rnd in range(FIX_ROUNDS + 1):
+        ordered = _before(off[:, :-1], ix[:, :-1], off[:, 1:], ix[:, 1:]).all(1)
+        if rnd == FIX_ROUNDS or ordered.all():
+            break
+        _transposition_round(off, ix)  # a no-op on rows already in order
+    exact = ~ordered
+    w_off, w_ix = _textbook_network(o_exact.copy(), np.broadcast_to(pos, (m, w)).copy(), log_w)
+    off = np.where(exact[:, None], w_off, off)
+    ix = np.where(exact[:, None], w_ix, ix)
+    rf, dist = _residual_sums(off, ix, s, length)
+    return rf, dist, exact
 
 
 EMU_NS = (2, 3, 4, 8, 16, 17, 32, 64, 96, 128, 256, 512, 1000, 1024)
@@ -414,16 +530,31 @@ def test_kernel_algorithm_emulated_equals_numpy_oracle(n, kind):
 
 
 @pytest.mark.parametrize("kind", stream_rows.KINDS)
-@pytest.mark.parametrize("n", (1025, 2048, 3000))
+@pytest.mark.parametrize("n", (1025, 2048, 3000, 4096, 8192))
 def test_long_row_kernel_emulated_equals_numpy_oracle(n, kind):
     rng = np.random.default_rng(n * 17 + stream_rows.KINDS.index(kind))
     m = 3
     offs, szs = stream_rows.stream_rows(kind, m, n, rng)
-    rf, dist = _emulate_long_rows(offs, szs)
+    rf, dist, exact = _emulate_long_rows(offs, szs)
     rf_np, _, dist_np = stream_stats_batch_np(offs, szs)
     assert np.array_equal(rf, rf_np) and np.array_equal(dist, dist_np)
     lens = np.array([0, 1 + n // 3, n - 1])
-    rf_l, dist_l = _emulate_long_rows(offs, szs, lens)
+    rf_l, dist_l, exact_l = _emulate_long_rows(offs, szs, lens)
     want = [stream_stats_batch_np(offs[i:i + 1, :k], szs[i:i + 1, :k]) for i, k in enumerate(lens)]
     assert np.array_equal(rf_l, [x[0][0] for x in want])
     assert np.array_equal(dist_l, [x[2][0] for x in want])
+    # the branch each row takes: the exact one where a shared bucket left
+    # the row too far out of order for FIX_ROUNDS rounds to repair (a
+    # reversed run beside one far offset), the bucket key with or without
+    # repairs elsewhere
+    if kind == "outlier":
+        assert exact.all()
+    if kind == "mixed":  # its outlier rows
+        extreme = (offs == stream_rows.INT64_MIN) | (offs == stream_rows.INT64_MAX)
+        assert exact[extreme.any(1)].all()
+    if kind in ("ties", "contiguous", "reversed", "near-min", "near-max"):
+        # spans that need no shift, or runs wider than a bucket
+        assert not exact.any() and not exact_l.any()
+    assert not exact_l[0]  # a row of no requests
+    assert np.array_equal(exact, stream_rows.long_row_exact(offs, fix_rounds=FIX_ROUNDS))
+    assert np.array_equal(exact_l, stream_rows.long_row_exact(offs, lens, FIX_ROUNDS))

@@ -5,9 +5,10 @@
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
-1. build   — compile the three CUDA kernels (``stream_rf``,
-   ``flash_attention``, ``ssm_scan``) from ``src/repro_torch/kernels/*/csrc``,
-   one nvcc per source, all started together;
+1. build   — compile the four CUDA kernels (``stream_rf``,
+   ``flash_attention``, ``ssm_scan``, ``replay``) from
+   ``src/repro_torch/kernels/*/csrc``, one nvcc per source, all started
+   together;
 2. kernels — hold ``stream_stats`` and ``stream_rf`` on the card against
    their plain torch versions and the NumPy oracle, bit for bit (ties of
    differing sizes at every N from 2 to 1024, offsets up to 2^40, int64
@@ -26,17 +27,23 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 3. golden  — rebuild both golden traces (fingerprints must match), run
    ``FleetProgram`` on the card under both fixture policies within each
    fixture's ``device_tolerance`` (routing fields exact), and replay the
-   anomaly shard under its four scheme/gate settings;
+   anomaly shard under its four scheme/gate settings; one ``replay``
+   kernel launch a program and a ``simulate_device``;
 4. sweep   — the fleet main path at real size: a 1,000,000-request trace
    (64 KiB requests, offsets uniform in [0, 2^38), 16 files, 8 apps, one
    30 s gap mid-trace) over 64 nodes x 4 schemes = 256 lanes,
    range-offset sharding; kernel launch counts are reset just before and
    read just after the first sweep, which must launch ``stream_stats``
-   exactly once (every shard's streams in one matrix); bytes must be
-   conserved, and the card's result must match the same sweep run on the
-   CPU; the first call is timed again in parts, scoring per shard and in
-   one launch taking turns; one more steady call is timed after each of
-   the profiled run, the first call's parts and the CPU run;
+   exactly once (every shard's streams in one matrix) and ``replay``
+   exactly once (every lane's whole tape in one launch), as must every
+   later call; bytes must be conserved, and the card's result must match
+   the same sweep run on the CPU (whether bit for bit is printed); the
+   first call is timed again in parts, scoring per shard and in one
+   launch taking turns; one more steady call is timed after each of the
+   profiled run, the first call's parts and the CPU run; then the
+   ``replay`` kernel against its plain torch version on the card on the
+   sweep's own packed inputs (integer fields exact, clocks within 1e-9
+   relative), timed beside it, and one lane of each scheme alone;
    sanitize — the fleet path with every sanitizer check armed
    (``sanitizing()``, ``sanitize=True``): the 16 golden fixtures through
    ``FleetProgram``, bit-equal to the unsanitized card runs above; the
@@ -48,9 +55,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    card when sanitized and reach ``io_seconds`` when not; and
    ``FleetSimulator`` and ``BurstBufferService`` on service load (a) below,
    each bit-equal to its unsanitized twin; ``stream_stats`` launches one a
-   program or run, none on the cached sweep (``launches_sanitize``);
+   program or run, none on the cached sweep (``launches_sanitize``), and
+   ``replay`` one a program or replay;
    ftl     — the same sweep with ``ssd="ftl"`` (first call, best of 3
-   steady calls, device busy share, GC relocations and write
+   steady calls, device busy share, the kernel against its plain version,
+   GC relocations and write
    amplification): bytes conserved, card equal to the CPU, and within
    ``DEVICE_TOLERANCES`` of ``FleetSimulator(engine="batched",
    ssd="ftl")`` on a trace cut to 50,000 requests (the host engine
@@ -71,8 +80,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    conserved; one ``stream_stats`` launch a run plus one a resharding
    failover; each run equal to the same run scored by the NumPy oracle;
    (b)'s healthy node results equal to ``FleetSimulator`` above;
-   any-len — the sweep at ``stream_len`` 96 and 2048, one launch each,
-   equal to ``score_backend="numpy"`` (no row of the 2048 sweep takes the
+   any-len — the sweep at ``stream_len`` 96 and 2048, one launch of each
+   kernel each, equal to ``score_backend="numpy"`` (no row of the 2048 sweep takes the
    long-row kernel's exact branch);
 5. timings — both stream kernels held bit-equal to their plain versions on
    every shard matrix the sweep feeds them and on their concatenation,
@@ -177,7 +186,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    non-causal.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-line, and as its last line ``{"ok": true, "device": {...}}``.
+line (``replay`` among them: not a Pallas kernel, the reference's XLA
+replay program; no library call computes it), and as its last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -216,6 +227,8 @@ from repro_torch.core.random_factor import stream_stats_batch_np  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.replay import kernel as replay_kernel  # noqa: E402
+from repro_torch.kernels.replay import ops as replay_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as ssm_ref  # noqa: E402
@@ -252,7 +265,16 @@ REPLACES = {
     "stream_rf": "src/repro/kernels/stream_rf/kernel.py:97",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:95",
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:67",
+    # no Pallas kernel: the reference's XLA program (lax.scan of vmap(_event_step))
+    "replay": "src/repro/core/engine_device.py:1165",
 }
+REPLAY_SOURCE = "src/repro_torch/kernels/replay/csrc/replay.cu"
+# float64 peak of an H100 SXM outside the tensor cores (data sheet), and an
+# upper count of the replay's float64 operations an event read off
+# replay.cu: a stream with one region fill, its HDD advance and a 64-entry
+# window sum; a compute gap
+FP64_FLOPS = 34e12
+REPLAY_OPS_STREAM, REPLAY_OPS_GAP = 400, 12
 MODEL_SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "ssm_scan": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
@@ -404,7 +426,7 @@ def phase_build() -> None:
     """Build every kernel of the port, one nvcc per source, all at once."""
 
     t0 = time.perf_counter()
-    libs = (kernel.LIBRARY, fa_kernel.LIBRARY, ssm_kernel.LIBRARY)
+    libs = (kernel.LIBRARY, fa_kernel.LIBRARY, ssm_kernel.LIBRARY, replay_kernel.LIBRARY)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
@@ -770,15 +792,46 @@ def golden_program(dev: torch.device, batch: TraceBatch, policy: str) -> FleetPr
                         device=dev)
 
 
-def phase_golden(dev: torch.device) -> dict:
-    """The 16 fixtures on the card; returns (workload, policy) -> the
-    program's results."""
+def replay_row(launches: dict, held: dict, ftl: dict, golden_replays: int,
+               sanitized: dict, host: dict, any_len: dict) -> dict:
+    """The kernels line's ``replay`` entry: the sweep's (constant SSD) and
+    the FTL sweep's numbers from :func:`replay_held`, and the launches of
+    each phase (one a ``FleetProgram.run``, gated where they ran)."""
+
+    fh = ftl["held"]
+    return {"name": "replay", "route": "cuda", "source": REPLAY_SOURCE,
+            "replaces": REPLACES["replay"], "launches": launches["replay"],
+            "max_abs_err": max(held["max_abs_err"], fh["max_abs_err"]),
+            "ms": held["ms"], "plain_ms": held["plain_ms"], "bound_ms": held["bound_ms"],
+            "bound_by": held["bound_by"], "library_ms": None,
+            "ops_bound_ms": held["ops_bound_ms"], "max_rel_err": held["max_rel_err"],
+            "one_lane_ms": held["one_lane_ms"], "bit_equal_cpu": held["bit_equal_cpu"],
+            "max_rel_gap_cpu": held["max_rel_gap_cpu"], "shape": [held["steps"], held["lanes"]],
+            "ftl_ms": fh["ms"], "ftl_plain_ms": fh["plain_ms"], "ftl_bound_ms": fh["bound_ms"],
+            "ftl_one_lane_ms": fh["one_lane_ms"], "ftl_bit_equal_cpu": fh["bit_equal_cpu"],
+            "ftl_max_abs_err": fh["max_abs_err"], "launches_ftl_sweep": ftl["launches"]["replay"],
+            "launches_golden": golden_replays, "launches_sanitize": sanitized["replay_launches"],
+            "launches_host_engines": host["launches"]["replay"],
+            "launches_any_len": {n: r["launches"]["replay"] for n, r in any_len.items()},
+            "library_call": "none: no PyTorch call computes the replay",
+            "main_path": "FleetProgram.run of the 1M-request sweep, 64 nodes x 4 schemes "
+                         "(one launch a run); not a Pallas kernel: the reference's XLA program"}
+
+
+def phase_golden(dev: torch.device) -> tuple[dict, int]:
+    """The 16 fixtures on the card, one ``replay`` launch a program and one
+    a ``simulate_device``; returns (workload, policy) -> the program's
+    results, and the replay launches."""
 
     runs = {}
+    replay_ops.reset_launches()
     for wl in golden.FIXTURE_WORKLOADS:
         batch = golden_trace(wl)
         for policy in golden.FIXTURE_POLICIES:
             res = runs[wl, policy] = golden_program(dev, batch, policy).run(batch)
+            if replay_ops.launches["replay"] != len(runs):
+                fail(f"golden {wl} {policy}: replay launched "
+                     f"{replay_ops.launches['replay'] - len(runs) + 1} times, expected 1")
             for scheme, fr in res.items():
                 path = golden.GOLDEN_DIR / golden.fixture_name(scheme, wl, policy)
                 payload = golden.load_fixture(path)
@@ -809,7 +862,11 @@ def phase_golden(dev: torch.device) -> dict:
             and io["ssdup+_gate0.75"] < io["orangefs"]):
         fail(f"anomaly ordering lost: {io}")
     log(f"[golden] anomaly: 4 keys met, io_seconds {json.dumps(io)}")
-    return runs
+    want = len(runs) + len(golden.ANOMALY_RUNS)
+    if replay_ops.launches["replay"] != want:
+        fail(f"[golden] replay launched {replay_ops.launches['replay']} times, expected {want} "
+             "(one a FleetProgram run, one a simulate_device)")
+    return runs, replay_ops.launches["replay"]
 
 
 def first_call_parts(dev: torch.device, prog: FleetProgram, batch: TraceBatch,
@@ -911,11 +968,13 @@ def host_probe(dev: torch.device) -> dict:
 
 
 def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
-                ) -> tuple[dict, int, dict, float, FleetProgram, dict]:
+                ) -> tuple[dict, int, dict, float, FleetProgram, dict, dict]:
     """The fleet main path at real size with storage model ``ssd``: one
-    ``stream_stats`` launch, first call, best of 3 steady calls, device
-    busy share; bytes conserved and the card equal to the CPU (integer
-    fields exact, clocks within 1e-9 relative).  With the constant SSD the
+    ``stream_stats`` launch and one ``replay`` launch a call (every call
+    checked), first call, best of 3 steady calls, device busy share; bytes
+    conserved and the card equal to the CPU (integer fields exact, clocks
+    within 1e-9 relative; whether bit for bit is printed); then the replay
+    kernel against its plain version on the card (:func:`replay_held`).  With the constant SSD the
     steady calls take turns with 3 calls under ``sanitizing()`` (off, on,
     on, off, off, on), each bit-equal to the first call, before anything
     else runs; then one more unchecked call is timed after each later step
@@ -924,7 +983,8 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     the steady calls, after them and after the profiled and CPU runs.  Returns the launch counts, the
     wide-branch rows, the result, the best steady time, the program and
     the steady times (``"off"``, ``"on"``, ``"after"``, and ``"cpu_share"``:
-    the main thread's CPU time over the wall time of each timed call)."""
+    the main thread's CPU time over the wall time of each timed call) and
+    :func:`replay_held`'s numbers."""
 
     tag = "[sweep]" if ssd == "constant" else f"[{ssd}]"
     t_phase = time.perf_counter()
@@ -935,26 +995,30 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     prog = FleetProgram(device=dev, **kw)
     kernel.wide_rows(reset=True)
     ops.reset_launches()
+    replay_ops.reset_launches()
     t0 = time.perf_counter()
     res = prog.run(batch)  # scores every shard on the card, builds tapes
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    launches = dict(ops.launches, **replay_ops.launches)
     wide = kernel.wide_rows(reset=True)
     if launches["stream_stats"] != 1:
         fail(f"{tag} stream_stats launched {launches['stream_stats']} times on the "
              "main path, expected exactly 1 (all shards in one launch)")
+    one_replay(tag, "the first call", launches["replay"])
     probe = ssd == "constant"
     first = res
 
     def one_call() -> float:
         nonlocal res
+        replay_ops.reset_launches()
         torch.cuda.synchronize()
         t0, cpu0 = time.perf_counter(), time.thread_time()
         res = prog.run(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         times["cpu_share"].append((time.thread_time() - cpu0) / wall)
+        one_replay(tag, "a steady call", replay_ops.launches["replay"])
         return wall
 
     # cpu_share: the main thread's CPU time over the wall time of each call
@@ -969,7 +1033,9 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     t_best = min(steady)
     if probe:
         probes["after_steady"] = host_probe(dev)
+    replay_ops.reset_launches()
     t_prof, busy, n_ops = device_time(lambda: prog.run(batch))
+    one_replay(tag, "the profiled call", replay_ops.launches["replay"])
     if probe:
         probes["after_profiled_run"] = host_probe(dev)
         times["after"]["profiled_run"] = one_call()
@@ -991,9 +1057,12 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
         times["after"]["first_call_parts"] = one_call()
 
     t0 = time.perf_counter()
-    worst = same_within(f"{tag} card vs cpu", res, FleetProgram(device="cpu", **kw).run(batch))
+    cpu_res = FleetProgram(device="cpu", **kw).run(batch)
+    worst = same_within(f"{tag} card vs cpu", res, cpu_res)
+    bitwise = all(golden.fleet_result_to_dict(res[s]) == golden.fleet_result_to_dict(cpu_res[s])
+                  for s in SCHEMES)
     log(f"{tag} card == cpu: integer fields exact, clocks max rel diff "
-        f"{worst:.3g} (cpu run {time.perf_counter() - t0:.1f} s)")
+        f"{worst!r}, bit for bit: {bitwise} (cpu run {time.perf_counter() - t0:.1f} s)")
     if probe:
         probes["after_cpu_run"] = host_probe(dev)
         log(f"{tag} host probe (a pure-Python loop s, a one-element add's launch us): "
@@ -1002,8 +1071,110 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
         log(f"{tag} one steady call after each later step (s): {json.dumps(times['after'])} "
             f"(best steady before them {t_best:.4f} s); the main thread's cpu time over "
             f"the wall time of each timed steady call, in order: {json.dumps(times['cpu_share'])}")
+    held = replay_held(dev, prog, batch, tag)
+    held.update(bit_equal_cpu=bitwise, max_rel_gap_cpu=worst)
+    log(f"{tag} profiled steady run with the replay kernel's own time (CUDA events; the "
+        f"profiler does not see it): busy {busy + held['ms'] / 1e3:.4f} s of {t_prof:.3f} s "
+        f"({(busy + held['ms'] / 1e3) / t_prof:.2%}), {n_ops} + 1 device ops")
     log(f"{tag} sweep and card-vs-cpu {time.perf_counter() - t_phase:.1f} s")
-    return launches, wide, res, t_best, prog, times
+    return launches, wide, res, t_best, prog, times, held
+
+
+def one_replay(tag: str, what: str, n: int) -> None:
+    if n != 1:
+        fail(f"{tag} {what} launched the replay kernel {n} times, expected exactly 1 "
+             "(every lane in one launch)")
+
+
+def raw_replay(p: replay_ops.Packed, g: list, steps: int):
+    """The replay kernel's C entry point with no wrapper (no status read
+    back), on the current stream, over packed inputs ``p``."""
+
+    lib = replay_kernel.load()
+    _, s, n = p.tape_f64.shape
+    w = p.win.shape[1]
+    scratch = [torch.empty(w, n, dtype=torch.float64, device=p.win.device) for _ in range(2)]
+    out_f64 = torch.empty(len(replay_ops.OUT_F64), n, dtype=torch.float64, device=p.win.device)
+    out_i64 = torch.empty(len(replay_ops.OUT_I64), n, dtype=torch.int64, device=p.win.device)
+    args = (p.tape_f64.data_ptr(), p.tape_i64.data_ptr(), p.tape_u8.data_ptr(),
+            p.lane_f64.data_ptr(), p.lane_i64.data_ptr(), p.state_f64.data_ptr(),
+            p.state_i64.data_ptr(), p.win.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), out_f64.data_ptr(), out_i64.data_ptr(), *g, s, n, w, steps)
+
+    def launch():
+        if lib.replay_launch(*args, torch.cuda.current_stream().cuda_stream) != 0:
+            fail("raw replay launch failed")
+
+    launch.buffers = (p, scratch, out_f64, out_i64)  # alive while the pointers are used
+    return launch
+
+
+def replay_bound_ms(p: replay_ops.Packed, steps: int) -> tuple[float, float]:
+    """The least time of one replay: (bytes, operations).  Bytes: the
+    packed inputs read once and the ten outputs written once, at the HBM
+    rate.  Operations: this tape's stream and gap events (the first
+    ``steps`` rows) at ``REPLAY_OPS_STREAM`` and ``REPLAY_OPS_GAP`` float64
+    operations each, at ``FP64_FLOPS``."""
+
+    parts = [getattr(p, f.name) for f in dataclasses.fields(p)]
+    lanes = p.win.shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in parts) + lanes * 10 * 8
+    valid, gap = (p.tape_u8[i, :steps].bool() for i in range(2))
+    streams, gaps = int((valid & ~gap).sum()), int((valid & gap).sum())
+    ops_s = (streams * REPLAY_OPS_STREAM + gaps * REPLAY_OPS_GAP) / FP64_FLOPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+
+
+def replay_held(dev: torch.device, prog: FleetProgram, batch: TraceBatch, tag: str) -> dict:
+    """The replay kernel against the plain torch transition
+    (``replay_ops.plain``, i.e. ``kernels/replay/ref.py``) on the card, on
+    the sweep's own packed inputs: integer fields exact, clocks within
+    1e-9 relative.  Times: the kernel by raw launches back to back (CUDA
+    events, the inputs warm in L2), the plain version once (CUDA events),
+    and one lane of each scheme alone (node 0's), to show what the longest
+    lane's chain costs; beside the bound (:func:`replay_bound_ms`)."""
+
+    events, lanes, state0, _ = prog._lane_inputs(batch)
+    p, g, steps = ed.replay_inputs(events, lanes, state0, hdd=prog.hdd,
+                                   interference=prog.interference, device=dev)
+    got = replay_ops.replay_op(p, g, steps)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    want = replay_ops.plain(p, g, steps)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    worst_abs = worst_rel = 0.0
+    for k, v in got.items():
+        if v.dtype.is_floating_point:
+            gap = (v - want[k]).abs()
+            worst_abs = max(worst_abs, float(gap.max()))
+            worst_rel = max(worst_rel, float((gap / want[k].abs().clamp_min(1e-300)).max()))
+        elif not torch.equal(v, want[k]):
+            fail(f"{tag} replay kernel {k} differs from the plain version on the card")
+    if worst_rel > 1e-9:
+        fail(f"{tag} replay kernel clocks {worst_rel!r} relative from the plain version")
+    ms = cuda_ms(raw_replay(p, g, steps), iters=50, warmup=3)
+    one_lane = {}
+    for si, scheme in enumerate(prog.schemes):
+        i = [si * prog.num_nodes]
+        p1, g1, s1 = ed.replay_inputs({k: v[:, i] for k, v in events.items()},
+                                      {k: v[i] for k, v in lanes.items()},
+                                      {k: v[i] for k, v in state0.items()},
+                                      hdd=prog.hdd, interference=prog.interference, device=dev)
+        one_lane[scheme] = cuda_ms(raw_replay(p1, g1, s1), iters=50, warmup=3)
+    bytes_ms, ops_ms = replay_bound_ms(p, steps)
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "ops_bound_ms": ops_ms, "one_lane_ms": one_lane, "max_abs_err": worst_abs,
+           "max_rel_err": worst_rel, "steps": steps, "lanes": p.win.shape[0]}
+    log(f"{tag} replay kernel vs its plain version on the card ({out['lanes']} lanes, "
+        f"{steps} events): integer fields exact, clocks max |diff| {worst_abs!r} (rel "
+        f"{worst_rel!r}); kernel {ms:.4f} ms (raw launches), plain {plain_ms:.1f} ms, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}; operations {ops_ms * 1e3:.3f} us); "
+        f"one lane alone (ms) {json.dumps(one_lane)}")
+    return out
 
 
 FTL_HOST_REQUESTS = 50_000  # the host FTL comparison's cut (see phase_ftl_sweep)
@@ -1046,7 +1217,7 @@ def phase_ftl_sweep(dev: torch.device, batch: TraceBatch) -> dict:
     requests, its capacity cut in proportion (half a node's share)."""
 
     t_phase = time.perf_counter()
-    launches, _, _, _, prog, _ = phase_sweep(dev, batch, ssd="ftl")
+    launches, _, _, _, prog, _, held = phase_sweep(dev, batch, ssd="ftl")
     per_scheme, wa = ftl_gc(prog, batch)
     reloc = sum(per_scheme.values())
     log(f"[ftl] GC relocations (ftl_reloc) {reloc:.1f} pages over all lanes "
@@ -1074,7 +1245,7 @@ def phase_ftl_sweep(dev: torch.device, batch: TraceBatch) -> dict:
         f"replays; GC relocations {sum(small_reloc.values()):.1f} pages, write "
         f"amplification {small_wa:.6f}; FleetProgram {t_card:.2f} s, host {t_host:.2f} s")
     log(f"[ftl] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "reloc": reloc, "wa": wa}
+    return {"launches": launches, "reloc": reloc, "wa": wa, "held": held}
 
 
 def phase_host_engines(dev: torch.device, batch: TraceBatch, swept: dict,
@@ -1104,6 +1275,7 @@ def phase_host_engines(dev: torch.device, batch: TraceBatch, swept: dict,
     log(f"[host] FleetSimulator(engine='batched') {SWEEP_NODES} nodes x {len(SCHEMES)} "
         f"schemes: {t_host:.2f} s (the sweep's FleetProgram: best {t_sweep:.3f} s); "
         f"FleetProgram within DEVICE_TOLERANCES of it; launches {json.dumps(launches)}")
+    replay_ops.reset_launches()
     for wl in golden.FIXTURE_WORKLOADS:
         gb = golden_trace(wl)
         kw = dict(ssd_capacity=golden._node_capacity(gb.total_bytes))
@@ -1125,6 +1297,10 @@ def phase_host_engines(dev: torch.device, batch: TraceBatch, swept: dict,
         log(f"[host] run_schemes {wl}: batched on the card == CPU exactly, device "
             f"engine card == cpu (clocks {worst:.3g}); io_seconds {json.dumps(io)} "
             f"({t_runs:.2f} s)")
+    launches["replay"] = replay_ops.launches["replay"]
+    if launches["replay"] != len(golden.FIXTURE_WORKLOADS) * len(SCHEMES):
+        fail(f"run_schemes(engine='device'): replay launched {launches['replay']} times, "
+             f"expected {len(golden.FIXTURE_WORKLOADS) * len(SCHEMES)} (one a scheme)")
     t0 = time.perf_counter()
     for scheme, wl, policy in ((s, w, p) for s in golden.FIXTURE_SCHEMES
                                for w in golden.FIXTURE_WORKLOADS
@@ -1364,6 +1540,7 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
     out = {}
     for stream_len in (96, 2048):
         ops.reset_launches()
+        replay_ops.reset_launches()
         kernel.long_rows(reset=True)
         kernel.long_wide_rows(reset=True)
         t0 = time.perf_counter()
@@ -1371,7 +1548,8 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
                            stream_len=stream_len, ssd_capacity=cap, device=dev).run(batch)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-        launches = dict(ops.launches)
+        launches = dict(ops.launches, **replay_ops.launches)
+        one_replay("[any-len]", f"the stream_len={stream_len} sweep", launches["replay"])
         long = kernel.long_rows(reset=True)
         exact = kernel.long_wide_rows(reset=True)
         if exact:
@@ -1440,6 +1618,7 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
 
     t0 = time.perf_counter()
     ops.reset_launches()
+    replay_ops.reset_launches()
     for (wl, policy), plain in golden_runs.items():
         gb = golden_trace(wl)
         with sanitizing():
@@ -1451,6 +1630,10 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
             if diffs:
                 fail(f"[sanitize] (a) {s}__{wl}__{policy}:\n" + "\n".join(diffs))
     launches["golden"] = ops.launches["stream_stats"]
+    replays = {"golden": replay_ops.launches["replay"]}
+    if replays["golden"] != len(golden_runs):
+        fail(f"[sanitize] (a) replay launched {replays['golden']} times, expected "
+             f"{len(golden_runs)} (one a program)")
     if launches["golden"] != len(golden_runs):
         fail(f"[sanitize] (a) stream_stats launched {launches['golden']} times, expected "
              f"{len(golden_runs)} (one a program)")
@@ -1459,6 +1642,7 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
         f"for {len(golden_runs)} programs; {time.perf_counter() - t0:.2f} s")
 
     ops.reset_launches()
+    replay_ops.reset_launches()
     with sanitizing():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1467,6 +1651,8 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
         t_late = time.perf_counter() - t0
     same_fleet("(b) sweep (checks on)", res, swept)
     launches["sweep"] = ops.launches["stream_stats"]
+    replays["sweep"] = replay_ops.launches["replay"]
+    one_replay("[sanitize] (b)", "the checked sweep call", replays["sweep"])
     if launches["sweep"] != 0:
         fail(f"[sanitize] (b) stream_stats launched {launches['sweep']} times on the sweep's "
              "cached tapes, expected 0 (its first call, in phase_sweep, launched once)")
@@ -1505,6 +1691,7 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
     args = (ed.stack_events([tape]),
             ed._stack_lanes([ed.lane_consts("ssdup+", golden._node_capacity(gb.total_bytes))]),
             ed._stack_lanes([ed.initial_lane_state("ssdup+", 64)]))
+    replay_ops.reset_launches()
     with sanitizing():
         try:
             ed.replay_lanes(*args, device=dev)
@@ -1519,8 +1706,12 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
         io = ed.replay_lanes(*args, device=dev)["io_seconds"]
     if not np.isnan(io[0]):
         fail(f"[sanitize] (c) unsanitized, the NaN did not reach io_seconds: {io[0]!r}")
-    log(f"[sanitize] (c) NaN in net_t[0] of the mixed-burst tape on the card: sanitized "
-        f"raises SanitizerError({caught!r}); unsanitized io_seconds[0] = {io[0]!r}")
+    replays["seeded_nan"] = replay_ops.launches["replay"]
+    if replays["seeded_nan"] != 2:
+        fail(f"[sanitize] (c) replay launched {replays['seeded_nan']} times, expected 2")
+    log(f"[sanitize] (c) NaN in net_t[0] of the mixed-burst tape on the card, through the "
+        f"replay kernel: sanitized raises SanitizerError({caught!r}); unsanitized "
+        f"io_seconds[0] = {io[0]!r}")
 
     a = service_load_a()
     kw = dict(num_nodes=SERVICE_A_NODES, policy="range-offset",
@@ -1560,9 +1751,9 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
         f"sanitize=True bit-equal to their unsanitized twins for every scheme; one launch a "
         f"run; walls (s) {json.dumps(walls)}")
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"[sanitize] launches {json.dumps(launches)}")
+    log(f"[sanitize] launches {json.dumps(launches)}, replay {json.dumps(replays)}")
     log(f"[sanitize] phase {out['phase_s']:.1f} s")
-    return {"launches": launches, **out}
+    return {"launches": launches, "replay_launches": replays, **out}
 
 
 # -- model kernels and the serve path ---------------------------------------
@@ -2028,33 +2219,23 @@ def phase_card_vs_cpu(dev: torch.device, arch: str) -> float:
     toks = torch.randint(0, cfg.vocab_size, (1, 256 + cfg.n_patches),
                          generator=torch.Generator().manual_seed(3))
     extra = {k: v.cpu() for k, v in frontend_inputs(cfg, 1, SERVE_SEED + 3, dev).items()}
-    routing, routes = model_layers.moe_routing, []
-
-    def record(*args, **kw):
-        out = routing(*args, **kw)
-        _, idx, slot, cap = out
-        routes.append((idx.cpu(), (slot < cap).cpu()))
-        return out
-
-    model_layers.moe_routing = record
-    try:
-        with torch.inference_mode():
+    card_routes, cpu_routes = [], []
+    with torch.inference_mode():
+        with _RouteRecorder(card_routes, dev):
             card, _ = model.prefill(params, {"tokens": toks.to(dev),
                                              **{k: v.to(dev) for k, v in extra.items()}})
-            card = card.cpu()
-            params.to("cpu")
-            torch.cuda.empty_cache()
+        card = card.cpu()
+        params.to("cpu")
+        torch.cuda.empty_cache()
+        with _RouteRecorder(cpu_routes, "cpu"):
             cpu, _ = get_model(cfg, "cpu").prefill(params, {"tokens": toks, **extra})
-    finally:
-        model_layers.moe_routing = routing
     err = _held(f"{arch} card vs cpu (f32, depth {depth})", card, cpu, F32_TOL["atol"],
                 F32_TOL["rtol"])
     moe = ""
-    if routes:
-        n = len(routes) // 2
+    if card_routes:
         differ = sum(int(((a[0] != b[0]) | (a[1] != b[1])).sum())
-                     for a, b in zip(routes[:n], routes[n:]))
-        total = sum(a[0].numel() for a in routes[:n])
+                     for a, b in zip(card_routes, cpu_routes, strict=True))
+        total = sum(a[0].numel() for a in card_routes)
         moe = f"; {differ} of {total} (token, choice) routes differ ({differ / total:.4%})"
     log(f"[card-vs-cpu] {arch}: full width, {depth} layers, {toks.shape[1]} tokens, f32: max "
         f"|logit diff| {err:.3g} (atol {F32_TOL['atol']}, rtol {F32_TOL['rtol']}){moe}")
@@ -3118,9 +3299,9 @@ def main() -> int:
     worst = phase_kernels(dev)
     worst = max(worst, phase_any_width(dev))
     model_worst = check_model_kernels(dev)
-    golden_runs = phase_golden(dev)
+    golden_runs, golden_replays = phase_golden(dev)
     batch = sweep_trace(SWEEP_REQUESTS)
-    launches, wide, swept, t_sweep, prog, sweep_times = phase_sweep(dev, batch)
+    launches, wide, swept, t_sweep, prog, sweep_times, held = phase_sweep(dev, batch)
     sanitized = phase_sanitize(dev, batch, golden_runs, swept, prog, sweep_times)
     ftl = phase_ftl_sweep(dev, batch)
     host = phase_host_engines(dev, batch, swept, t_sweep)
@@ -3133,6 +3314,7 @@ def main() -> int:
     kernels[0]["launches_service"] = service["launches"]
     kernels[0]["service_scoring"] = service["kernel"]
     kernels[0]["launches_sanitize"] = sanitized["launches"]
+    kernels.append(replay_row(launches, held, ftl, golden_replays, sanitized, host, any_len))
     model_launches = {}  # summed over the serve runs, per kernel instance
     for arch in SERVE_ARCHS:
         t_arch = time.perf_counter()

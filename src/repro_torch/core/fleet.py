@@ -315,14 +315,14 @@ class FleetProgram:
         self._tape_cache = (batch, tapes, per_app)
         return tapes, per_app
 
-    def _replay(self, batch: TraceBatch) -> tuple[dict, list]:
-        """``replay_lanes``' raw per-lane outputs (FTL relocations and live
-        pages too) and each shard's bytes per app."""
+    def _lane_inputs(self, batch: TraceBatch) -> tuple[dict, dict, dict, list]:
+        """The stacked tape, lane constants and initial states of every
+        lane (NumPy, scheme-major: lane s * N + n replays shard n under
+        scheme s, every scheme reusing the same N tapes), and each shard's
+        bytes per app."""
 
         tapes, per_app = self._tapes(batch)
         n = self.num_nodes
-        # lane order is scheme-major: lane s * N + n replays shard n under
-        # scheme s (every scheme reuses the same N tapes)
         events = ed.stack_events([tapes[i] for _ in self.schemes for i in range(n)])
         lanes = ed._stack_lanes([
             ed.lane_consts(s, self.ssd_capacity, self.flush_gate, ssd=self.ssd)
@@ -333,6 +333,13 @@ class FleetProgram:
                                   ssd=self.ssd)
             for s in self.schemes for _ in range(n)
         ])
+        return events, lanes, state0, per_app
+
+    def _replay(self, batch: TraceBatch) -> tuple[dict, list]:
+        """``replay_lanes``' raw per-lane outputs (FTL relocations and live
+        pages too) and each shard's bytes per app."""
+
+        events, lanes, state0, per_app = self._lane_inputs(batch)
         out = ed.replay_lanes(events, lanes, state0, hdd=self.hdd,
                               interference=self.interference, device=self.device)
         return out, per_app

@@ -39,17 +39,20 @@ def nvcc() -> str:
 
 class CudaLibrary:
     """One kernel source, built on first :meth:`load` and bound by ``bind``
-    (which sets each C function's ``argtypes`` and ``restype``)."""
+    (which sets each C function's ``argtypes`` and ``restype``).
+    ``extra_flags`` are this library's own, after :data:`NVCC_FLAGS`."""
 
-    def __init__(self, source: pathlib.Path, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, source: pathlib.Path, bind: Callable[[ctypes.CDLL], None],
+                 extra_flags: tuple[str, ...] = ()):
         self.source = source
         self._bind = bind
+        self.flags = NVCC_FLAGS + tuple(extra_flags)
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         self.build_log = ""  # nvcc's output of the last build ("" if cached)
 
     def library_path(self) -> pathlib.Path:
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(self.source.read_bytes() + " ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{digest.hexdigest()[:16]}.so"
 
     def build(self) -> pathlib.Path:
@@ -63,7 +66,7 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
             capture_output=True, text=True, check=False,
         )
         self.build_log = proc.stdout + proc.stderr

@@ -40,7 +40,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_memory_probe.py"],
+@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_memory_probe.py",
+                                              REPO / "chip_stream_variants.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     assert not _imported_roots(path) & set(FORBIDDEN)

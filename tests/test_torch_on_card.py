@@ -24,11 +24,13 @@ from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax, tree_from_params
 from repro_torch.optim import AdamWConfig, init_state, linear_warmup_cosine
 from repro_torch.analysis import sanitizing
-from repro_torch.core import FleetProgram
+from repro_torch.core import FleetProgram, compute_stream_scores
+from repro_torch.core import engine_device as ed
 from repro_torch.core.random_factor import stream_stats_batch_np
 from repro_torch.core.trace import _score_shards_kernel
 from repro_torch.distributed.sharding import assign_nodes
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.replay import ops as replay_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ref as ssm_ref
@@ -391,6 +393,61 @@ def test_golden_fixture_sanitized_on_card(card):
         checked = FleetProgram(**kw).run(batch)["ssdup+"]
     assert fleet_result_to_dict(checked) == fleet_result_to_dict(plain)
     assert golden.check_fixture(payload, checked, tolerances=payload["device_tolerance"]) == []
+
+
+def _replay_on_card(card, events, lanes, state0) -> dict:
+    """The replay kernel against its plain torch version on the card
+    (integer fields exact, clocks within 1e-9 relative, NaN where it is)
+    and against the CPU run (the same gates); one launch."""
+
+    p, g, steps = ed.replay_inputs(events, lanes, state0, device=card)
+    replay_ops.reset_launches()
+    got = replay_ops.replay_op(p, g, steps)
+    assert replay_ops.launches["replay"] == 1
+    plain = replay_ops.plain(p, g, steps)
+    cpu = ed.replay_lanes(events, lanes, state0, device="cpu")
+    for k, v in got.items():
+        for want in (plain[k].cpu(), torch.from_numpy(cpu[k])):
+            if v.dtype.is_floating_point:
+                torch.testing.assert_close(v.cpu(), want, rtol=1e-9, atol=0,
+                                           equal_nan=True, msg=k)
+            else:
+                assert v.dtype == want.dtype and torch.equal(v.cpu(), want), k
+    return {k: v.cpu().numpy() for k, v in got.items()}
+
+
+@pytest.mark.parametrize("ssd", [None, "ftl"])
+@pytest.mark.parametrize("workload", ["mixed-burst", "strided-gaps"])
+def test_replay_kernel_vs_plain_on_golden_program(card, workload, ssd):
+    batch = golden_trace(workload)
+    prog = FleetProgram(num_nodes=golden.FIXTURE_NODES, schemes=golden.FIXTURE_SCHEMES,
+                        policy="range-offset", ssd=ssd,
+                        ssd_capacity=golden._node_capacity(batch.total_bytes), device=card)
+    _replay_on_card(card, *prog._lane_inputs(batch)[:3])
+    replay_ops.reset_launches()
+    prog.run(batch)
+    assert replay_ops.launches["replay"] == 1
+
+
+@pytest.mark.parametrize("field", ["net_t", "hddt_0"])
+def test_replay_kernel_carries_a_seeded_nan(card, field):
+    batch = golden_trace("mixed-burst")
+    tape = ed.build_events(batch, compute_stream_scores(batch, device="cpu"))
+    tape[field][0] = np.nan
+    out = _replay_on_card(card, ed.stack_events([tape]),
+                          ed._stack_lanes([ed.lane_consts("ssdup+", 1 << 26)]),
+                          ed._stack_lanes([ed.initial_lane_state("ssdup+", 64)]))
+    assert np.isnan(out["io_seconds"][0])
+
+
+def test_replay_kernel_on_a_wrapping_window(card):
+    """A sweep long enough that every lane's window of 7 wraps, the device
+    gate, a region small enough to swap and block."""
+
+    batch = sweep_trace(150_000)
+    prog = FleetProgram(num_nodes=4, policy="range-offset", ssd_capacity=32 << 20,
+                        flush_gate="device", adaptive_window=7, device=card)
+    _replay_on_card(card, *prog._lane_inputs(batch)[:3])
 
 
 SERVICE_FAULTS = {

@@ -12,6 +12,9 @@ where it is exact: tie-free rows, offsets below 2^31, distance sums below
 2^24 (tolerance 0 there).
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -205,6 +208,34 @@ def test_kernel_source_names_what_it_replaces():
     src = kernel.SOURCE.read_text()
     assert "kernel.py" in src and "stream_stats" in src and "stream_rf" in src
     assert 'extern "C" int stream_stats_launch' in src
+
+
+def _variants_module():
+    spec = importlib.util.spec_from_file_location(
+        "chip_stream_variants", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_stream_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+VARIANTS = ("as_is", "k8", "k32", "u64", "u64_k8", "nosort", "nocheck", "local", "norelay",
+            "noshfl", "nobar")
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_timing_variants_apply_to_todays_source(name):
+    """``chip_stream_variants.py`` makes each variant by editing the text of
+    ``stream_rf.cu``; every edit must still fit the source (a variant that
+    no longer does raises ``SystemExit`` there, on the card)."""
+
+    mod = _variants_module()
+    assert set(mod.VARIANTS) == set(VARIANTS)
+    text = mod.variant_source(mod.VARIANTS[name])
+    assert (text == kernel.SOURCE.read_text()) == (name == "as_is")
+    for flag in mod.VARIANTS[name].split():
+        if not flag.startswith(("K", "U64")):
+            assert f"#define {flag}\n" in text
 
 
 @pytest.mark.parametrize("w", [1, 7, 64])

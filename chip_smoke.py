@@ -83,6 +83,21 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    any-len — the sweep at ``stream_len`` 96 and 2048, one launch of each
    kernel each, equal to ``score_backend="numpy"`` (no row of the 2048 sweep takes the
    long-row kernel's exact branch);
+   examples — the reference's user entry points as the port runs them:
+   each ``examples_torch/*.py`` script's ``main()`` and that of
+   ``experiments/anomaly_hunt_torch.py`` in this process, on the card
+   (``[examples]`` lines: each script's output and wall).  Gates: the
+   stdout of ``quickstart``, ``fleet_sim``, ``service_failover`` and
+   ``elastic_recovery`` equal to ``tests/golden_torch/examples/*.txt``
+   (held equal to the reference's by a CPU test); one ``stream_stats``
+   launch a ``FleetSimulator.run``, a scoring pass and a service run (plus
+   one a resharding failover); ``batched_replay`` at 250,000 requests,
+   its backends equal and its card scores equal to
+   ``score_backend="numpy"``; ``serve_batched``'s attention and scan once
+   a layer and its tokens below the padded vocabulary;
+   ``train_checkpointed`` at 120 steps resuming at its newest save with
+   finite losses; the hunt's CSV byte-identical to
+   ``experiments/anomaly_hunt.csv``;
 5. timings — both stream kernels held bit-equal to their plain versions on
    every shard matrix the sweep feeds them and on their concatenation,
    and on every shape they are timed at; timed at that one-launch shape
@@ -198,6 +213,8 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
@@ -217,7 +234,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import sanitize, sanitizing  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import FleetProgram, TraceBatch, compute_stream_scores  # noqa: E402
 from repro_torch.core import FleetResult, FleetSimulator, run_schemes  # noqa: E402
 from repro_torch.core import simulate_device  # noqa: E402
@@ -1574,6 +1591,233 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
     return out
 
 
+# -- the user entry points: the examples and the anomaly hunt ----------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples_torch")
+EXAMPLES_GOLDEN = os.path.join(ROOT, "tests", "golden_torch", "examples")
+HOST_EXAMPLES = ("quickstart", "fleet_sim", "service_failover", "elastic_recovery")
+HUNT_SCRIPT = os.path.join(ROOT, "experiments", "anomaly_hunt_torch.py")
+HUNT_CSV = os.path.join(ROOT, "experiments", "anomaly_hunt.csv")
+# batched_replay's --requests: a quarter of the reference's 1,000,000 (its default),
+# cut for the script's time: at 1,000,000 its AVL leg took 26.3 s and the script
+# 900.6 s on one H100 host
+EXAMPLES_REPLAY_REQUESTS = 250_000
+EXAMPLES_TRAIN_STEPS = 120  # train_checkpointed's --steps (its default)
+
+
+def load_script(path: str) -> types.ModuleType:
+    """A script of the repo, loaded by path (they are not packages)."""
+
+    name = "script_" + os.path.splitext(os.path.relpath(path, ROOT))[0].replace(os.sep, "_")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class CountedRuns:
+    """Within the block, ``FleetSimulator.run`` calls are counted and the
+    service's instances kept (each counting its resharding failovers); the
+    real class and method are put back on leaving."""
+
+    def __enter__(self):
+        self.fleet_runs, self.services = 0, []
+        self.real_run, self.real_service = FleetSimulator.run, service_loop.BurstBufferService
+        outer = self
+
+        def run(fleet, *args, **kw):
+            outer.fleet_runs += 1
+            return outer.real_run(fleet, *args, **kw)
+
+        class Recorded(ReshardCountingService):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                outer.services.append(self)
+
+        FleetSimulator.run = run
+        service_loop.BurstBufferService = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        FleetSimulator.run = self.real_run
+        service_loop.BurstBufferService = self.real_service
+
+
+def run_script(label: str, main, argv: list) -> dict:
+    """``main(argv)`` of a port script on the card, its stdout captured and
+    echoed, with every kernel's launches and the fleet runs counted from
+    zero; returns what it returned, printed, launched and took."""
+
+    ops.reset_launches()
+    fa_ops.reset_launches()
+    ssm_ops.reset_launches()
+    replay_ops.reset_launches()
+    buf = io.StringIO()
+    with CountedRuns() as counted, contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        out = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.launches, **fa_ops.launches, **ssm_ops.launches, **replay_ops.launches)
+    for line in buf.getvalue().splitlines():
+        log(f"[examples]   {label} | {line}")
+    log(f"[examples] {label}: {wall:.3f} s on the card; launches {json.dumps(launches)}, "
+        f"{counted.fleet_runs} FleetSimulator.run call(s)")
+    return {"out": out, "stdout": buf.getvalue(), "wall_s": wall, "launches": launches,
+            "fleet_runs": counted.fleet_runs,
+            "reshards": sum(svc.reshards for svc in counted.services),
+            "service_runs": len(counted.services)}
+
+
+def only_launches(label: str, launches: dict, want: dict) -> None:
+    """Exactly ``want``'s launches of each kernel, and none of the others."""
+
+    got = {k: v for k, v in launches.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        fail(f"[examples] {label}: launches {json.dumps(got)}, expected {json.dumps(want)}")
+
+
+def serve_against_plain(kernel: dict) -> None:
+    """``serve_batched``'s run on the kernels against the same script on the
+    layers' torch paths (its ``get_smoke_config`` swapped for one that says
+    ``attention_impl``/``ssm_impl="torch"``), on the same seeded weights and
+    prompts: each row's last-position logits within ``BF16_TOL`` for every
+    step fed the same tokens, and where a bf16 near-tie flips a token, the
+    plain logits' margin between the two tokens within ``BF16_TOL`` too (the
+    rule of ``tests/test_torch_examples.py`` against the reference)."""
+
+    mod = load_script(os.path.join(EXAMPLES_DIR, "serve_batched.py"))
+    mod.get_smoke_config = lambda arch: dataclasses.replace(
+        get_smoke_config(arch), attention_impl="torch", ssm_impl="torch")
+    plain = run_script("serve_batched on the torch paths",
+                       lambda argv: {arch: mod.serve(arch, None) for arch in mod.ARCHS}, [])
+    only_launches("serve_batched on the torch paths", plain["launches"], {})
+    for arch in mod.ARCHS:
+        got, want = kernel[arch], plain["out"][arch]
+        err, margins = 0.0, []
+        for b in range(mod.BATCH):
+            flips = torch.nonzero(got["tokens"][b] != want["tokens"][b]).flatten().tolist()
+            upto = flips[0] + 1 if flips else mod.GEN  # the steps fed the same tokens
+            err = max(err, _held(f"[examples] serve_batched {arch} row {b}: kernel vs torch "
+                                 "paths' logits", got["logits"][b, :upto],
+                                 want["logits"][b, :upto], BF16_TOL, BF16_TOL))
+            if flips:
+                t = flips[0]
+                lg = want["logits"][b, t]
+                margin = float(lg[want["tokens"][b, t]] - lg[got["tokens"][b, t]])
+                margins.append(margin)
+                if not 0 <= margin <= BF16_TOL:
+                    fail(f"[examples] serve_batched {arch} row {b}: token {t} flipped at a "
+                         f"margin of {margin:.3g}")
+        log(f"[examples] serve_batched {arch}: the kernels' logits within {BF16_TOL} of the "
+            f"torch paths' (max |err| {err:.3g}); {len(margins)} row(s) flipped by a near-tie, "
+            f"margins {margins}")
+
+
+def phase_examples(dev: torch.device) -> dict:
+    """The reference's user entry points as the port runs them on the card:
+    each ``examples_torch`` script's and the anomaly hunt's ``main()`` in
+    this process, without ``--device``.  Gates: the four host-deterministic
+    examples print the committed texts (held equal to the reference's
+    output by ``tests/test_torch_examples.py``); one ``stream_stats``
+    launch a ``FleetSimulator.run`` (``fleet_sim``, the hunt), a scoring
+    pass (``quickstart``, ``batched_replay``) and a service run plus one a
+    resharding failover (``service_failover``); ``batched_replay``'s
+    backends agreeing and its card scores equal to ``score_backend="numpy"``;
+    ``serve_batched``'s kernels once a layer, its tokens below the padded
+    vocabulary and its logits against its torch paths'
+    (``serve_against_plain``); ``train_checkpointed``'s resume at its newest save
+    before the crash and finite losses; the hunt's CSV byte-identical to
+    ``experiments/anomaly_hunt.csv``."""
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for name in HOST_EXAMPLES:
+        res = runs[name] = run_script(name, load_script(os.path.join(EXAMPLES_DIR, name + ".py"))
+                                      .main, [])
+        with open(os.path.join(EXAMPLES_GOLDEN, name + ".txt")) as f:
+            if res["stdout"] != f.read():
+                fail(f"[examples] {name}: stdout differs from the committed text")
+    only_launches("quickstart", runs["quickstart"]["launches"], {"stream_stats": 1})
+    fleet = runs["fleet_sim"]
+    if fleet["fleet_runs"] != fleet["out"]["fleet_runs"] or fleet["fleet_runs"] != 7:
+        fail(f"[examples] fleet_sim: {fleet['fleet_runs']} FleetSimulator.run calls")
+    only_launches("fleet_sim", fleet["launches"], {"stream_stats": fleet["fleet_runs"]})
+    svc = runs["service_failover"]
+    if svc["service_runs"] != len(SCHEMES):
+        fail(f"[examples] service_failover: {svc['service_runs']} service runs")
+    only_launches("service_failover", svc["launches"],
+                  {"stream_stats": svc["service_runs"] + svc["reshards"]})
+    only_launches("elastic_recovery", runs["elastic_recovery"]["launches"], {})
+
+    mod = load_script(os.path.join(EXAMPLES_DIR, "batched_replay.py"))
+    res = runs["batched_replay"] = run_script(
+        "batched_replay", mod.main, ["--requests", str(EXAMPLES_REPLAY_REQUESTS)])
+    only_launches("batched_replay", res["launches"], {"stream_stats": 2})  # + the spot check
+    oracle = compute_stream_scores(res["out"]["batch"], backend="numpy")
+    for f in dataclasses.fields(oracle):
+        got, want = getattr(res["out"]["scores"], f.name), getattr(oracle, f.name)
+        if f.name != "backend" and not np.array_equal(got, want):
+            fail(f"[examples] batched_replay: card scores' {f.name} differ from numpy")
+    a, b = (res["out"]["results"][k] for k in ("numpy", "avl"))
+    if dataclasses.asdict(a) != dataclasses.asdict(b):
+        fail("[examples] batched_replay: the index backends disagree")
+    log(f"[examples] batched_replay: {EXAMPLES_REPLAY_REQUESTS:,} requests, "
+        f"{len(oracle):,} streams scored on the card equal to numpy; replay numpy "
+        f"{res['out']['seconds']['numpy']:.3f} s, avl {res['out']['seconds']['avl']:.3f} s, "
+        "backends equal field for field")
+
+    mod = load_script(os.path.join(EXAMPLES_DIR, "serve_batched.py"))
+    if (mod.BATCH, mod.PROMPT) != EXAMPLES_SERVE:
+        fail(f"[examples] serve_batched prefills {(mod.BATCH, mod.PROMPT)}, the kernel cases "
+             f"hold {EXAMPLES_SERVE}")
+    res = runs["serve_batched"] = run_script("serve_batched", mod.main, [])
+    want = {}
+    for arch in mod.ARCHS:
+        name, count = prefill_launches(get_smoke_config(arch))
+        want[name] = want.get(name, 0) + count
+        tokens = res["out"][arch]["tokens"]
+        if tokens.shape != (mod.BATCH, mod.GEN) or not bool(
+                ((tokens >= 0) & (tokens < res["out"][arch]["padded_vocab"])).all()):
+            fail(f"[examples] serve_batched {arch}: bad tokens {tokens.tolist()}")
+    only_launches("serve_batched", res["launches"], want)
+    serve_against_plain(res["out"])
+
+    mod = load_script(os.path.join(EXAMPLES_DIR, "train_checkpointed.py"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        res = runs["train_checkpointed"] = run_script(
+            "train_checkpointed", mod.main,
+            ["--steps", str(EXAMPLES_TRAIN_STEPS), "--ckpt-dir", root])
+    out = res["out"]
+    newest = EXAMPLES_TRAIN_STEPS // 2 // mod.SAVE_EVERY * mod.SAVE_EVERY  # before the crash
+    if out["resumed_at"] != newest or not all(
+            math.isfinite(v) for v in out["losses"].values()):
+        fail(f"[examples] train_checkpointed: resumed at {out['resumed_at']}, "
+             f"losses {out['losses']}")
+    only_launches("train_checkpointed", res["launches"], {})  # the torch paths
+
+    mod = load_script(HUNT_SCRIPT)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hunt_") as tmp:
+        csv = os.path.join(tmp, "anomaly_hunt.csv")
+        res = runs["anomaly_hunt"] = run_script("anomaly_hunt", mod.main, ["--csv", csv])
+        with open(csv, "rb") as got, open(HUNT_CSV, "rb") as want:
+            if got.read() != want.read():
+                fail("[examples] anomaly_hunt: the CSV differs from experiments/anomaly_hunt.csv")
+    if res["out"] != 0 or res["fleet_runs"] != 86:
+        fail(f"[examples] anomaly_hunt: rc {res['out']}, {res['fleet_runs']} fleet runs")
+    only_launches("anomaly_hunt", res["launches"], {"stream_stats": res["fleet_runs"]})
+    log("[examples] anomaly_hunt: the CSV is byte-identical to experiments/anomaly_hunt.csv")
+
+    walls = {name: round(r["wall_s"], 4) for name, r in runs.items()}
+    total = time.perf_counter() - t_phase
+    log(f"[examples] walls (s) {json.dumps(walls)}; phase {total:.1f} s")
+    launches = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"walls": walls, "launches": launches, "seconds": total}
+
+
 # -- the fleet path with the sanitizer armed --------------------------------
 
 
@@ -1772,9 +2016,18 @@ FA_SERVE = {
 WHISPER_ENCODER = (SERVE_BATCH, 6, 6, 1500, 1500, 64, False)
 WHISPER_DECODER = (SERVE_BATCH, 6, 6, PROMPT_OF["whisper-tiny"], PROMPT_OF["whisper-tiny"], 64,
                    True)
+# examples_torch/serve_batched.py's prefill: 4 prompts of 24 tokens through
+# the smoke configs of qwen3-1.7b (attention at hd 16) and falcon-mamba-7b
+EXAMPLES_SERVE = (4, 24)  # its BATCH, PROMPT; phase_examples checks them
+_EX_ATTN, _EX_SCAN = get_smoke_config("qwen3-1.7b"), get_smoke_config("falcon-mamba-7b")
+EXAMPLES_FA = (*EXAMPLES_SERVE[:1], _EX_ATTN.n_heads, _EX_ATTN.n_kv_heads,
+               EXAMPLES_SERVE[1], EXAMPLES_SERVE[1], _EX_ATTN.head_dim_, True)
+EXAMPLES_SSM = (*EXAMPLES_SERVE, _EX_SCAN.expand * _EX_SCAN.d_model, _EX_SCAN.ssm_state,
+                min(512, _EX_SCAN.expand * _EX_SCAN.d_model),  # layers.py's block_d
+                min(_EX_SCAN.scan_chunk, EXAMPLES_SERVE[1]))
 # the shapes a served prefill gives the kernel, held in the model's layout
 FA_MODEL_SHAPES = [(b, h, kv, s, s, hd, True) for b, h, kv, s, hd in FA_SERVE.values()] + [
-    WHISPER_ENCODER, WHISPER_DECODER]
+    WHISPER_ENCODER, WHISPER_DECODER, EXAMPLES_FA]
 FA_CASES = [  # (b, h, kv, sq, sk, hd, causal)
     (1, 2, 2, 128, 128, 64, True),   # the grid of tests/test_kernels.py
     (2, 4, 2, 128, 128, 64, True),
@@ -1807,6 +2060,7 @@ SSM_CASES = [  # (b, s, di, n, block_d, chunk)
     (2, 100, 200, 2, 40, 50),
     (2, 96, 200, 32, 100, 32),
     (1, 70, 37, 4, 37, 70),    # DI not a multiple of 8: plain loads, no 16-byte copies
+    EXAMPLES_SSM,              # serve_batched's falcon-mamba-7b smoke prefill
     (SERVE_BATCH, SERVE_PROMPT, 8192, 16, 512, 256),  # falcon-mamba-7b prefill
 ]
 
@@ -1870,6 +2124,9 @@ def check_model_kernels(dev: torch.device) -> dict[str, float]:
             err = _held(f"flash_attention {(b, h, kv, sq, sk, hd, causal)} {dtype}",
                         got, want, FA_TOL[dtype], FA_TOL[dtype])
             worst[fa_instance(hd)] = max(worst[fa_instance(hd)], err)
+            if (b, h, kv, sq, sk, hd, causal) == EXAMPLES_FA:
+                log(f"[kernels] flash_attention at serve_batched's prefill {EXAMPLES_FA} "
+                    f"{dtype}: max |err| {err:.3g}")
     log(f"[kernels] flash_attention: {2 * len(FA_CASES)} cases within 2e-5 (f32) / "
         f"2e-2 (bf16) of the plain version, max |err| {worst['flash_attention']:.3g}, "
         f"at hd 80 {worst['flash_attention_hd80']:.3g}, at hd 64 "
@@ -1882,8 +2139,12 @@ def check_model_kernels(dev: torch.device) -> dict[str, float]:
             yr, hr = ssm_ref.ssm_scan_ref(*args)
             label = f"ssm_scan {(b, s, di, n)} x {xdtype}"
             tol = SSM_TOL[xdtype]
-            worst["ssm_scan"] = max(worst["ssm_scan"], _held(label + " y", y, yr, tol, tol),
+            err = _held(label + " y", y, yr, tol, tol)
+            worst["ssm_scan"] = max(worst["ssm_scan"], err,
                                     _held(label + " h_last", h, hr, 1e-3, 1e-3))
+            if (b, s, di, n, bd, ck) == EXAMPLES_SSM:
+                log(f"[kernels] ssm_scan at serve_batched's prefill {EXAMPLES_SSM} x {xdtype}: "
+                    f"max |err| of y {err:.3g}")
     b, s, di, n, bd, ck = SSM_CASES[-1]
     args = ssm_inputs(dev, b, s, di, n, torch.bfloat16, seed=99)
     y0, h0 = ssm_ops.ssm_scan_op(*args, block_d=bd, chunk=ck)
@@ -3307,7 +3568,9 @@ def main() -> int:
     host = phase_host_engines(dev, batch, swept, t_sweep)
     service = phase_service(dev, batch, host["results"])
     any_len = phase_any_len_sweeps(dev, batch)
+    examples = phase_examples(dev)
     kernels = kernel_timings(dev, batch, worst, launches, any_len)
+    kernels[0]["launches_examples"] = examples["launches"]["stream_stats"]
     kernels[0]["main_path_wide_rows"] = wide
     kernels[0]["launches_ftl_sweep"] = ftl["launches"]["stream_stats"]
     kernels[0]["launches_host_engines"] = host["launches"]["stream_stats"]
@@ -3384,6 +3647,9 @@ def main() -> int:
     kernels += model_kernel_timings(dev, model_worst, model_launches, clock_mhz * 1e6)
     for row in kernels[-4:]:  # the model kernels' rows
         row["launches_mesh"] = mesh_launches.get(row["name"], 0)
+    # serve_batched's attention runs at the smoke config's hd 16, not the row's hd 128
+    kernels[-4]["launches_examples_hd16"] = examples["launches"].get("flash_attention", 0)
+    kernels[-1]["launches_examples"] = examples["launches"].get("ssm_scan", 0)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,10 +4,11 @@ The reference's unit tests for the rules the port keeps (every rule but
 SL102 and SL103, which match only JAX APIs), run on the port's linter;
 each known-bad and known-good snippet of them gives the same findings in
 both packages, as does every test module that does not mention torch; the
-torch forms of SL101, SL105 and SL109; the command line's ``--check``;
-and the port's own source scans clean (the port's counterpart of the
-reference's CI lint step).  The reference's baseline file and its options
-are not ported, so their tests stay reference-only."""
+torch forms of SL101, SL105 and SL109; the command line's ``--check``,
+``--baseline``, ``--write-baseline``, ``--rules`` and ``--root``; baseline
+files written by either package read the same in the other; and the
+port's own source and entry points scan clean (the port's counterpart of
+the reference's CI lint step)."""
 
 import pathlib
 import textwrap
@@ -15,7 +16,10 @@ import textwrap
 import pytest
 
 import repro.analysis as ref_analysis
+from repro.analysis import baseline as ref_baseline
+from repro.analysis.cli import main as ref_cli_main
 from repro_torch.analysis import check_paths, check_source
+from repro_torch.analysis.baseline import diff_baseline, load_baseline, write_baseline
 from repro_torch.analysis.cli import main as cli_main
 from repro_torch.analysis.engine import iter_py_files
 from repro_torch.analysis.rules import all_rules, rules_by_id
@@ -236,6 +240,147 @@ def test_cli_requires_check(capsys):
     assert cli_main([]) == 2
 
 
+# -- baseline ------------------------------------------------------------
+
+
+def test_baseline_round_trip_and_diff(tmp_path):
+    findings = check_source("def f(x):\n    assert x\n    assert not x\n")
+    assert len(findings) == 2
+    path = tmp_path / "baseline.json"
+    write_baseline(path, findings)
+    counts = load_baseline(path)
+    assert sum(counts.values()) == 2
+
+    # same findings: nothing new, nothing stale
+    new, stale = diff_baseline(findings, counts)
+    assert new == [] and stale == []
+
+    # one fixed: it shows up as stale
+    new, stale = diff_baseline(findings[:1], counts)
+    assert new == [] and len(stale) == 1
+
+    # a fresh finding is reported as new
+    extra = check_source("def g(y):\n    assert y\n")
+    new, stale = diff_baseline(findings + extra, counts)
+    assert len(new) == 1
+
+
+def test_baseline_rejects_bad_schema(tmp_path):
+    path = tmp_path / "bad.json"
+    path.write_text('{"schema": "nope/v9", "fingerprints": {}}')
+    with pytest.raises(ValueError, match="unknown baseline schema"):
+        load_baseline(path)
+
+
+def test_cli_check_and_baseline_flow(tmp_path, capsys):
+    bad = tmp_path / "mod.py"
+    bad.write_text("def f(x):\n    assert x\n")
+
+    assert cli_main(["--check", str(bad)]) == 1
+    assert "SL106" in capsys.readouterr().out
+
+    baseline = tmp_path / "baseline.json"
+    assert cli_main(
+        ["--check", str(bad), "--write-baseline", str(baseline)]
+    ) == 0
+    capsys.readouterr()
+    # baselined: clean exit
+    assert cli_main(["--check", str(bad), "--baseline", str(baseline)]) == 0
+    assert "clean" in capsys.readouterr().out
+
+    # fixing the file makes the baseline entry stale -> nonzero, so the
+    # baseline cannot rot silently
+    bad.write_text("def f(x):\n    return x\n")
+    assert cli_main(["--check", str(bad), "--baseline", str(baseline)]) == 1
+    assert "stale" in capsys.readouterr().out
+
+
+def _as_reference(out: str) -> str:
+    """The port's command-line output as the reference words it: SL106's
+    message names each package's own sanitizer."""
+
+    return out.replace("repro_torch.analysis", "repro.analysis")
+
+
+# a module whose SL106 and SL101 findings both linters report alike
+_SHARED_SOURCE = ("import numpy as np\n\n\ndef f(x):\n    assert x\n"
+                  "    return np.random.uniform(0, 1, 3)\n")
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_baselines_are_shared(writer, tmp_path, capsys):
+    """A baseline written by either package's command line gives the other
+    the same ``(new, stale)`` split, file for file, and the same verdict."""
+
+    mod = tmp_path / "mod.py"
+    mod.write_text(_SHARED_SOURCE)
+    path = tmp_path / "baseline.json"
+    write, read = (cli_main, ref_cli_main) if writer == "port" else (ref_cli_main, cli_main)
+    assert write(["--check", str(mod), "--root", str(tmp_path),
+                  "--write-baseline", str(path)]) == 0
+    assert "wrote 2 finding(s)" in capsys.readouterr().out
+    port_counts, ref_counts = load_baseline(path), ref_baseline.load_baseline(path)
+    assert port_counts == ref_counts and sum(port_counts.values()) == 2
+    assert read(["--check", str(mod), "--root", str(tmp_path), "--baseline", str(path)]) == 0
+    assert capsys.readouterr().out == "simlint: clean\n"
+
+    # one finding fixed, one new: the same split under both packages
+    mod.write_text(_SHARED_SOURCE.replace("    assert x\n", "") + "\n\ndef g(y):\n"
+                   "    assert y\n")
+    port_new, port_stale = diff_baseline(check_paths([mod], root=tmp_path), port_counts)
+    ref_new, ref_stale = ref_baseline.diff_baseline(
+        ref_analysis.check_paths([mod], rules=ref_analysis.rules_by_id(KEPT), root=tmp_path),
+        ref_counts)
+    assert _key(port_new, True) == _key(ref_new, False) and len(port_new) == 1
+    assert port_stale == ref_stale == ["SL106::mod.py::assert x"]
+    outs = []
+    for main in (cli_main, ref_cli_main):
+        assert main(["--check", str(mod), "--root", str(tmp_path), "--rules", ",".join(KEPT),
+                     "--baseline", str(path)]) == 1
+        outs.append(capsys.readouterr().out)
+    assert _as_reference(outs[0]) == outs[1]
+    assert "stale baseline entry (fixed — remove it): SL106::mod.py::assert x" in outs[0]
+    assert outs[0].endswith("simlint: 1 new finding(s), 1 stale baseline entr(y/ies)\n")
+
+
+@pytest.mark.parametrize("rules,said", [
+    ("SL106", ["SL106"]), ("sl101, SL106", ["SL106", "SL101"]), ("SL104", [])],
+    ids=["one", "two", "none-found"])
+def test_cli_rules_runs_only_the_named_rules(rules, said, tmp_path, capsys):
+    mod = tmp_path / "mod.py"
+    mod.write_text(_SHARED_SOURCE)
+    rc = cli_main(["--check", str(mod), "--rules", rules])
+    out = capsys.readouterr().out
+    assert rc == (1 if said else 0)
+    assert [line.split()[1] for line in out.splitlines() if ": SL" in line] == said
+    assert ref_cli_main(["--check", str(mod), "--rules", rules]) == rc
+    assert capsys.readouterr().out == _as_reference(out)
+
+
+@pytest.mark.parametrize("rule", ["SL102", "SL103", "SL999"])
+def test_cli_rules_refuses_an_unknown_id(rule, tmp_path):
+    """SL102 and SL103 match JAX APIs and are not in the port's registry,
+    so ``--rules`` names them unknown, as the reference does SL999."""
+
+    mod = tmp_path / "mod.py"
+    mod.write_text(_SHARED_SOURCE)
+    with pytest.raises(ValueError, match="unknown rule"):
+        cli_main(["--check", str(mod), "--rules", rule])
+
+
+def test_cli_root_reports_paths_relative_to_it(tmp_path, capsys, monkeypatch):
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "mod.py").write_text(_SHARED_SOURCE)
+    monkeypatch.chdir(REPO)
+    assert cli_main(["--check", str(pkg), "--root", str(tmp_path)]) == 1
+    lines = [line for line in capsys.readouterr().out.splitlines() if ": SL" in line]
+    assert lines and all(line.startswith("pkg/mod.py:") for line in lines)
+    assert cli_main(["--check", str(pkg), "--root", str(pkg)]) == 1
+    assert all(line.startswith("mod.py:") for line in capsys.readouterr().out.splitlines()
+               if ": SL" in line)
+
+
 # -- the port against the reference -------------------------------------
 
 
@@ -349,6 +494,8 @@ def test_torch_forms(rule, bad, source):
 
 def test_src_repro_torch_is_simlint_clean():
     findings = check_paths([REPO / "src" / "repro_torch", REPO / "chip_smoke.py",
-                            REPO / "chip_memory_probe.py", REPO / "chip_stream_variants.py"],
+                            REPO / "chip_memory_probe.py", REPO / "chip_stream_variants.py",
+                            REPO / "examples_torch",
+                            REPO / "experiments" / "anomaly_hunt_torch.py"],
                            root=REPO)
     assert findings == [], "\n".join(f.render() for f in findings)

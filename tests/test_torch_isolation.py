@@ -27,6 +27,9 @@ from repro_torch.testing.traces import golden_trace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the port's user entry points: the examples and the anomaly hunt
+ENTRY_FILES = sorted((REPO / "examples_torch").glob("*.py")) + [
+    REPO / "experiments" / "anomaly_hunt_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -41,7 +44,7 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_memory_probe.py",
-                                              REPO / "chip_stream_variants.py"],
+                                              REPO / "chip_stream_variants.py"] + ENTRY_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
@@ -57,8 +60,20 @@ def test_scan_covers_the_host_engine_modules():
     assert {"checkpoint/__init__.py", "checkpoint/tiered_store.py",
             "distributed/fault_tolerance.py", "testing/golden.py",
             "testing/service.py", "testing/perf.py", "analysis/engine.py",
-            "analysis/rules.py", "analysis/cli.py",
+            "analysis/rules.py", "analysis/cli.py", "analysis/baseline.py",
             "analysis/__main__.py"} <= names
+    assert {p.stem for p in ENTRY_FILES} == {
+        "quickstart", "fleet_sim", "batched_replay", "service_failover", "elastic_recovery",
+        "serve_batched", "train_checkpointed", "anomaly_hunt_torch"}
+
+
+def test_every_reference_module_and_example_has_a_counterpart():
+    def modules(root):
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
+
+    assert modules(REPO / "src" / "repro") - modules(REPO / "src" / "repro_torch") == set()
+    assert {p.name for p in (REPO / "examples").glob("*.py")} == \
+        {p.name for p in (REPO / "examples_torch").glob("*.py")}
 
 
 _BLOCKED_RUN = r'''
@@ -120,6 +135,11 @@ rec = dryrun.run_cell("qwen3-1.7b", "decode_32k", "single", tempfile.mkdtemp(),
                       override_cfg=get_smoke_config("qwen3-1.7b"), device="cpu")
 assert rec["status"] == "ok" and rec["collectives"]["counts"]
 assert roofline.collectives_from_records([("all-reduce", 40, 4)]).link_bytes == 60.0
+examples = pathlib.Path(repro_torch.__file__).parents[2] / "examples_torch"
+for name in ("quickstart", "elastic_recovery"):
+    sys.argv = [name] + (["--device", "cpu"] if name == "quickstart" else [])
+    with contextlib.redirect_stdout(io.StringIO()):
+        runpy.run_path(str(examples / f"{name}.py"), run_name="__main__")
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("ok", sorted(res))

@@ -286,12 +286,15 @@ REPLACES = {
     "replay": "src/repro/core/engine_device.py:1165",
 }
 REPLAY_SOURCE = "src/repro_torch/kernels/replay/csrc/replay.cu"
-# float64 peak of an H100 SXM outside the tensor cores (data sheet), and an
-# upper count of the replay's float64 operations an event read off
-# replay.cu: a stream with one region fill, its HDD advance and a 64-entry
-# window sum; a compute gap
+# float64 peak of an H100 SXM outside the tensor cores (data sheet), and
+# the replay's float64 operations read off replay.cu, split as the kernel
+# runs them: the chain's stream event with one region fill (about 80: its
+# divisions, log2 and anchor interpolations), its HDD advance (about 115:
+# 17 hat terms of 6) and routing; a compute gap; and, ahead of the chain,
+# the threshold pass of an SSDUP+ stream event: W additions of its window's
+# sum (counted apart) and 4 more (the mean, the index)
 FP64_FLOPS = 34e12
-REPLAY_OPS_STREAM, REPLAY_OPS_GAP = 400, 12
+REPLAY_OPS_STREAM, REPLAY_OPS_GAP, REPLAY_OPS_THRESHOLD = 200, 12, 4
 MODEL_SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "ssm_scan": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
@@ -1104,41 +1107,38 @@ def one_replay(tag: str, what: str, n: int) -> None:
 
 
 def raw_replay(p: replay_ops.Packed, g: list, steps: int):
-    """The replay kernel's C entry point with no wrapper (no status read
-    back), on the current stream, over packed inputs ``p``."""
+    """The replay kernel's launch with no wrapper around it (no status read
+    back, not counted), on the current stream, over packed inputs ``p``."""
 
-    lib = replay_kernel.load()
-    _, s, n = p.tape_f64.shape
-    w = p.win.shape[1]
-    scratch = [torch.empty(w, n, dtype=torch.float64, device=p.win.device) for _ in range(2)]
-    out_f64 = torch.empty(len(replay_ops.OUT_F64), n, dtype=torch.float64, device=p.win.device)
-    out_i64 = torch.empty(len(replay_ops.OUT_I64), n, dtype=torch.int64, device=p.win.device)
-    args = (p.tape_f64.data_ptr(), p.tape_i64.data_ptr(), p.tape_u8.data_ptr(),
-            p.lane_f64.data_ptr(), p.lane_i64.data_ptr(), p.state_f64.data_ptr(),
-            p.state_i64.data_ptr(), p.win.data_ptr(), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), out_f64.data_ptr(), out_i64.data_ptr(), *g, s, n, w, steps)
+    launch = replay_ops.launcher(p, g, steps)
 
-    def launch():
-        if lib.replay_launch(*args, torch.cuda.current_stream().cuda_stream) != 0:
-            fail("raw replay launch failed")
+    def run():
+        try:
+            launch()
+        except RuntimeError as err:
+            fail(f"raw replay launch: {err}")
 
-    launch.buffers = (p, scratch, out_f64, out_i64)  # alive while the pointers are used
-    return launch
+    return run
 
 
 def replay_bound_ms(p: replay_ops.Packed, steps: int) -> tuple[float, float]:
     """The least time of one replay: (bytes, operations).  Bytes: the
     packed inputs read once and the ten outputs written once, at the HBM
     rate.  Operations: this tape's stream and gap events (the first
-    ``steps`` rows) at ``REPLAY_OPS_STREAM`` and ``REPLAY_OPS_GAP`` float64
-    operations each, at ``FP64_FLOPS``."""
+    ``steps`` of each lane) at ``REPLAY_OPS_STREAM`` and ``REPLAY_OPS_GAP``
+    float64 operations each, and each SSDUP+ stream event's window sum
+    (``W`` additions, ``REPLAY_OPS_THRESHOLD`` more), at ``FP64_FLOPS``."""
 
     parts = [getattr(p, f.name) for f in dataclasses.fields(p)]
-    lanes = p.win.shape[0]
+    lanes, w = p.win.shape
     nbytes = sum(t.numel() * t.element_size() for t in parts) + lanes * 10 * 8
-    valid, gap = (p.tape_u8[i, :steps].bool() for i in range(2))
-    streams, gaps = int((valid & ~gap).sum()), int((valid & gap).sum())
-    ops_s = (streams * REPLAY_OPS_STREAM + gaps * REPLAY_OPS_GAP) / FP64_FLOPS
+    valid, gap = (p.tape_u8[i, :, :steps].bool() for i in range(2))
+    stream = valid & ~gap
+    plus = p.lane_i64[replay_ops.LANE_I64.index("scheme")] == ed.SCHEME_IDS["ssdup+"]
+    streams, gaps = int(stream.sum()), int((valid & gap).sum())
+    plus_streams = int(stream[plus].sum())
+    ops_s = (streams * REPLAY_OPS_STREAM + gaps * REPLAY_OPS_GAP
+             + plus_streams * (w + REPLAY_OPS_THRESHOLD)) / FP64_FLOPS
     return nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
 
 

@@ -16,8 +16,10 @@ lane at once (:class:`repro_torch.core.fleet.FleetProgram`).
   byte counters, region occupancy, the single in-flight flush job, the
   adaptive-threshold window as a circular buffer, routing hysteresis).
 * **transition** — :mod:`repro_torch.kernels.replay`: on the card one
-  launch of a hand-written CUDA kernel (one thread a lane) steps every
-  lane through the whole tape and drains it; on the CPU its plain torch
+  launch of a hand-written CUDA kernel (a block a lane: SSDUP+'s
+  threshold pass ahead of the lane's chain, the tape staged in shared
+  memory) steps every lane through the whole tape and drains it; on the
+  CPU its plain torch
   version (:mod:`repro_torch.kernels.replay.ref`: stream routing, SSD
   region fills/swaps/blocks in a masked loop, HDD advances with Eq. 7
   interference, flush accounting per Eq. 6, compute-gap draining).
@@ -338,7 +340,10 @@ def stack_events(
     tapes: Sequence[Mapping[str, np.ndarray]], pad_to: int | None = None
 ) -> dict[str, np.ndarray]:
     """Stack per-lane tapes into ``(S, L)`` arrays, right-padded with
-    ``valid=False`` events to ``pad_to`` (default :func:`_pad_len`)."""
+    ``valid=False`` events to ``pad_to`` (default :func:`_pad_len`).  Each
+    is the transposed view of a lane-major ``(L, S)`` array, the layout of
+    the replay kernel's packed tape, so stacking writes each lane's field
+    in one run and packing copies it in one run."""
 
     if not tapes:
         raise ValueError("need at least one lane")
@@ -347,14 +352,14 @@ def stack_events(
     if s < longest:
         raise ValueError(f"pad_to={s} < longest tape {longest}")
     out = {
-        k: np.zeros((s, len(tapes)), dtype=dt)
+        k: np.zeros((len(tapes), s), dtype=dt)
         for k, dt in _EVENT_FIELDS.items()
     }
     for j, t in enumerate(tapes):
         n = len(t["valid"])
         for k in _EVENT_FIELDS:
-            out[k][:n, j] = t[k]
-    return out
+            out[k][j, :n] = t[k]
+    return {k: v.T for k, v in out.items()}
 
 
 def lane_consts(

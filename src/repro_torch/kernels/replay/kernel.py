@@ -17,7 +17,7 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "replay.cu"
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.replay_launch
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_double] * 7 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_double] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 

@@ -2,12 +2,15 @@
 
 The replay's inputs are packed on the host into one byte buffer and moved
 to the device in one copy (:func:`to_device`).  The buffer holds, each
-array row-major and field-major so that a warp's lanes read neighbouring
-addresses:
+array row-major:
 
-* ``tape_f64`` ``(len(TAPE_F64), S, L)`` float64, ``tape_i64``
-  ``(1, S, L)`` int64 (``nbytes``) and ``tape_u8`` ``(2, S, L)`` uint8
-  (``valid``, ``is_gap``): the stacked event tape;
+* ``tape_f64`` ``(len(TAPE_F64), L, S)`` float64, ``tape_i64``
+  ``(1, L, S)`` int64 (``nbytes``) and ``tape_u8`` ``(2, L, S)`` uint8
+  (``valid``, ``is_gap``): the stacked event tape, each field of one
+  lane's events contiguous, so that the kernel copies a lane's events to
+  shared memory a stage at a time.  ``S`` is the stacked tape's length
+  padded with invalid events to a multiple of :data:`TAPE_ALIGN`, so that
+  every copy starts and ends on 16 bytes;
 * ``lane_f64`` ``(len(LANE_F64), L)`` and ``lane_i64`` ``(len(LANE_I64),
   L)``: the lane constants (booleans and int32 fields as int64);
 * ``state_f64`` ``(len(STATE_F64), L)``, ``state_i64`` ``(len(STATE_I64),
@@ -37,11 +40,13 @@ import torch
 from . import ref
 from .ref import N_WINDOWS, SUFFIX_ANCHORS, XMERGE_D
 
-#: Largest adaptive window the kernel takes: its sorted copy is kept by
-#: insertion, and a stream event of a threshold scheme reads it whole.
+#: Largest adaptive window the kernel takes: SSDUP+'s threshold pass
+#: keeps the window and a chunk of candidates in shared memory.
 MAX_WINDOW = 1024
 #: Region fills one lane may take in one event before the kernel stops it.
 MAX_FILLS = 1 << 20
+#: The packed tape's rows hold a multiple of this many events.
+TAPE_ALIGN = 16
 
 TAPE_F64 = (
     "gap_sec", "pct", "net_t", "ssd_w", "mean_sz",
@@ -96,22 +101,31 @@ class Packed:
     win: object
 
 
+def padded_len(s: int) -> int:
+    """The packed tape's length for a stacked tape of ``s`` events."""
+
+    return -(-s // TAPE_ALIGN) * TAPE_ALIGN
+
+
 def _sections(s: int, l: int, w: int) -> list[tuple[str, np.dtype, tuple, tuple]]:
-    """(part, dtype, shape, field names) in buffer order; 8-byte parts first."""
+    """(part, dtype, shape, field names) in buffer order for a packed tape
+    of ``s`` events (a multiple of :data:`TAPE_ALIGN`): the tape first, so
+    each of its rows starts on 16 bytes, then the other 8-byte parts."""
 
     f8, i8, u1 = np.dtype(np.float64), np.dtype(np.int64), np.dtype(np.uint8)
-    return [("tape_f64", f8, (len(TAPE_F64), s, l), TAPE_F64),
+    return [("tape_f64", f8, (len(TAPE_F64), l, s), TAPE_F64),
+            ("tape_i64", i8, (len(TAPE_I64), l, s), TAPE_I64),
+            ("tape_u8", u1, (len(TAPE_U8), l, s), TAPE_U8),
             ("lane_f64", f8, (len(LANE_F64), l), LANE_F64),
             ("state_f64", f8, (len(STATE_F64), l), STATE_F64),
             ("win", f8, (l, w), ()),
-            ("tape_i64", i8, (len(TAPE_I64), s, l), TAPE_I64),
             ("lane_i64", i8, (len(LANE_I64), l), LANE_I64),
-            ("state_i64", i8, (len(STATE_I64), l), STATE_I64),
-            ("tape_u8", u1, (len(TAPE_U8), s, l), TAPE_U8)]
+            ("state_i64", i8, (len(STATE_I64), l), STATE_I64)]
 
 
 def views(buf, s: int, l: int, w: int) -> Packed:
-    """:class:`Packed` views of a packed uint8 buffer (NumPy or torch)."""
+    """:class:`Packed` views of a packed uint8 buffer (NumPy or torch) whose
+    tape holds ``s`` events a lane (a multiple of :data:`TAPE_ALIGN`)."""
 
     parts, off = {}, 0
     for name, dt, shape, _ in _sections(s, l, w):
@@ -129,21 +143,28 @@ def pack(events: Mapping[str, np.ndarray], lanes: Mapping[str, np.ndarray],
          state0: Mapping[str, np.ndarray]) -> tuple[np.ndarray, tuple[int, int, int]]:
     """The stacked ``(S, L)`` tape, ``(L,)`` lane constants and ``(L, ...)``
     initial state (NumPy, as :mod:`repro_torch.core.engine_device` builds
-    them) in one uint8 buffer; returns it and ``(S, L, W)``."""
+    them) in one uint8 buffer; returns it and ``(padded_len(S), L, W)``.
+    The events past ``S`` are invalid and zero."""
 
     s, l = np.shape(events["valid"])
     w = np.shape(state0["win"])[1]
-    size = sum(dt.itemsize * int(np.prod(shape)) for _, dt, shape, _ in _sections(s, l, w))
+    sp = padded_len(s)
+    size = sum(dt.itemsize * int(np.prod(shape)) for _, dt, shape, _ in _sections(sp, l, w))
     buf = np.empty(size, dtype=np.uint8)
-    p = views(buf, s, l, w)
-    for name, _, _, fields in _sections(s, l, w):
+    p = views(buf, sp, l, w)
+    for name, _, _, fields in _sections(sp, l, w):
         src = events if name.startswith("tape") else lanes if name.startswith("lane") else state0
         dst = getattr(p, name)
         if name == "win":
             dst[...] = state0["win"]
         for i, k in enumerate(fields):
-            dst[i] = src[k]
-    return buf, (s, l, w)
+            if name.startswith("tape"):
+                dst[i, :, :s] = np.asarray(src[k]).T
+            else:
+                dst[i] = src[k]
+        if name.startswith("tape") and sp > s:
+            dst[:, :, s:] = 0
+    return buf, (sp, l, w)
 
 
 def to_device(events, lanes, state0, device) -> Packed:
@@ -155,14 +176,18 @@ def to_device(events, lanes, state0, device) -> Packed:
 
 def unpack(p: Packed) -> tuple[dict, dict, dict]:
     """``(events, lanes, state)`` dicts of tensors with the plain version's
-    dtypes (views where the dtype is the packed one)."""
+    dtypes and shapes (the events ``(S, L)``, ``S`` the packed length;
+    views where the dtype is the packed one)."""
 
-    def fields(arr, names):
-        return {k: arr[i].to(_NARROW[k]) if k in _NARROW else arr[i]
-                for i, k in enumerate(names)}
+    def fields(arr, names, tape=False):
+        out = {}
+        for i, k in enumerate(names):
+            v = arr[i].T if tape else arr[i]
+            out[k] = v.to(_NARROW[k]) if k in _NARROW else v
+        return out
 
-    events = {**fields(p.tape_f64, TAPE_F64), **fields(p.tape_i64, TAPE_I64),
-              **fields(p.tape_u8, TAPE_U8)}
+    events = {**fields(p.tape_f64, TAPE_F64, True), **fields(p.tape_i64, TAPE_I64, True),
+              **fields(p.tape_u8, TAPE_U8, True)}
     lanes = {**fields(p.lane_f64, LANE_F64), **fields(p.lane_i64, LANE_I64)}
     state = {**fields(p.state_f64, STATE_F64), **fields(p.state_i64, STATE_I64),
              "win": p.win}
@@ -172,9 +197,12 @@ def unpack(p: Packed) -> tuple[dict, dict, dict]:
 def _check(p: Packed, g: Sequence[float], steps: int) -> tuple[int, int, int]:
     if not (isinstance(p.tape_f64, torch.Tensor) and p.tape_f64.dim() == 3
             and isinstance(p.win, torch.Tensor) and p.win.dim() == 2):
-        raise ValueError("tape_f64 must be an (F, S, L) tensor and win an (L, W) one")
-    _, s, l = p.tape_f64.shape
+        raise ValueError("tape_f64 must be an (F, L, S) tensor and win an (L, W) one")
+    _, l, s = p.tape_f64.shape
     w = p.win.shape[1]
+    if s % TAPE_ALIGN:
+        raise ValueError(f"the packed tape's {s} events a lane must be a multiple of "
+                         f"{TAPE_ALIGN}")
     for name, dt, shape, _ in _sections(s, l, w):
         t = getattr(p, name)
         if not isinstance(t, torch.Tensor):
@@ -197,27 +225,41 @@ def _check(p: Packed, g: Sequence[float], steps: int) -> tuple[int, int, int]:
     return s, l, w
 
 
-def _launch(p: Packed, g: Sequence[float], steps: int, s: int, l: int, w: int) -> dict:
+def launcher(p: Packed, g: Sequence[float], steps: int):
+    """A host call that enqueues one launch of the kernel over ``p`` (CUDA
+    tensors, as :func:`replay_op` checks them, on the current device) on
+    that device's current stream and raises if the launch is refused.  It
+    reads nothing back; its outputs are ``.out_f64`` and ``.out_i64`` (rows
+    :data:`OUT_F64`, :data:`OUT_I64`).  Not counted in ``launches``."""
+
     from .kernel import load  # builds with nvcc on first use
 
+    s, l, w = _check(p, g, steps)
     dev = p.tape_f64.device
-    win = torch.empty(w, l, dtype=torch.float64, device=dev)
-    srt = torch.empty_like(win)
     out_f64 = torch.empty(len(OUT_F64), l, dtype=torch.float64, device=dev)
     out_i64 = torch.empty(len(OUT_I64), l, dtype=torch.int64, device=dev)
     lib = load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.replay_launch(
-            p.tape_f64.data_ptr(), p.tape_i64.data_ptr(), p.tape_u8.data_ptr(),
+    args = (p.tape_f64.data_ptr(), p.tape_i64.data_ptr(), p.tape_u8.data_ptr(),
             p.lane_f64.data_ptr(), p.lane_i64.data_ptr(), p.state_f64.data_ptr(),
-            p.state_i64.data_ptr(), p.win.data_ptr(), win.data_ptr(), srt.data_ptr(),
-            out_f64.data_ptr(), out_i64.data_ptr(), *(float(v) for v in g),
-            s, l, w, steps, stream)
-    if err != 0:
-        raise RuntimeError(f"replay kernel launch failed: cudaError {err}")
+            p.state_i64.data_ptr(), p.win.data_ptr(), out_f64.data_ptr(), out_i64.data_ptr(),
+            *(float(v) for v in g), s, l, w, steps)
+
+    def launch() -> None:
+        err = lib.replay_launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"replay kernel launch failed: cudaError {err}")
+
+    launch.out_f64, launch.out_i64 = out_f64, out_i64
+    launch.inputs = p  # alive while the pointers are used
+    return launch
+
+
+def _launch(p: Packed, g: Sequence[float], steps: int) -> dict:
+    run = launcher(p, g, steps)
+    with torch.cuda.device(p.tape_f64.device):
+        run()
     launches["replay"] += 1
-    out = {**dict(zip(OUT_F64, out_f64)), **dict(zip(OUT_I64, out_i64))}
+    out = {**dict(zip(OUT_F64, run.out_f64)), **dict(zip(OUT_I64, run.out_i64))}
     if bool(out.pop("status").any()):
         raise RuntimeError(f"replay kernel: a lane's region fills passed {MAX_FILLS} "
                            "in one event")
@@ -238,9 +280,9 @@ def replay_op(p: Packed, g: Sequence[float], steps: int) -> dict[str, torch.Tens
     events, then drained; ``g`` the :data:`GLOBALS` in order.  Returns the
     :data:`ref.OUTPUTS` as tensors on ``p``'s device."""
 
-    s, l, w = _check(p, g, steps)
+    _check(p, g, steps)
     if p.tape_f64.device.type == "cpu":
         return plain(p, g, steps)
     if p.tape_f64.device.type == "cuda":
-        return _launch(p, g, steps, s, l, w)
+        return _launch(p, g, steps)
     raise ValueError(f"no replay kernel for device {p.tape_f64.device}")

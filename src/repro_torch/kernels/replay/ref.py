@@ -64,23 +64,13 @@ def _i32(b: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int32)
 
 
-def _observe_and_route(g, lane, st, pct):
-    """Threshold observe + Algorithm 1 hysteresis for one stream per lane.
+def _adaptive_threshold(win, win_n, win_p, pct, default_thr):
+    """SSDUP+'s threshold for one stream per lane (Eq. 2/3): avgper over
+    the PRE-insert sorted window, insert ``pct`` over the oldest entry,
+    index floor((1-avgper)*n) into the POST-insert sorted window; +inf pads
+    sort last.  Returns ``(adap_thr, win2, n2, p2)``, the threshold and the
+    window after the insert."""
 
-    Returns ``(dev_ssd, allowed, upd)``: the device serving THIS stream,
-    whether the traffic-aware gate lets the flusher run during it, and the
-    policy-state updates (applied on stream events of threshold schemes).
-    """
-
-    scheme = lane["scheme"]
-    is_ofs = scheme == 0
-    is_bb = scheme == 1
-    is_plus = scheme == 3
-
-    # adaptive threshold (Eq. 2/3): avgper over the PRE-insert sorted
-    # window, insert over the oldest entry, index floor((1-avgper)*n) into
-    # the POST-insert sorted window; +inf pads sort last
-    win, win_n, win_p = st["win"], st["win_n"], st["win_p"]
     w = win.shape[1]
     csum = torch.cumsum(torch.sort(win, dim=1).values, dim=1)
     have = win_n > 0
@@ -94,7 +84,24 @@ def _observe_and_route(g, lane, st, pct):
         torch.clamp_min(torch.floor((1.0 - avg) * n2).to(torch.int32), 0), n2 - 1
     )
     picked = torch.gather(post_sorted, 1, idx.long()[:, None])[:, 0]
-    adap_thr = torch.where(have, picked, g["default_thr"])
+    return torch.where(have, picked, default_thr), win2, n2, p2
+
+
+def _observe_and_route(g, lane, st, pct):
+    """Threshold observe + Algorithm 1 hysteresis for one stream per lane.
+
+    Returns ``(dev_ssd, allowed, upd)``: the device serving THIS stream,
+    whether the traffic-aware gate lets the flusher run during it, and the
+    policy-state updates (applied on stream events of threshold schemes).
+    """
+
+    scheme = lane["scheme"]
+    is_ofs = scheme == 0
+    is_bb = scheme == 1
+    is_plus = scheme == 3
+
+    adap_thr, win2, n2, p2 = _adaptive_threshold(st["win"], st["win_n"], st["win_p"], pct,
+                                                 g["default_thr"])
 
     # static watermarks (SSDUP): hysteresis between high and low
     sr2 = (pct > g["static_high"]) | (~(pct < g["static_low"]) & st["static_rand"])

@@ -1,21 +1,27 @@
 """A lane-serial mirror of the ``replay`` kernel's algorithm in NumPy.
 
 The CUDA kernel (``kernels/replay/csrc/replay.cu``) runs only on a card.
-This module runs the same algorithm on the CPU, statement for statement:
+This module runs the same algorithm on the CPU, statement for statement,
 one lane at a time in scalar float64, over the same packed arrays
-(:class:`repro_torch.kernels.replay.ops.Packed`, NumPy views), with the
-kernel's branches (a gap or a stream, the FTL or the constant SSD, one
-dyadic scale), its per-lane region-fill loop, its incrementally sorted
-window, NaN-propagating max/min/clamp, ``rint`` and the x86 float-to-int
-conversion.  The CPU tests hold it to the plain torch version
-(:func:`repro_torch.core.engine_device.replay_lanes` on the CPU), so a
-change of the algorithm shows here before it reaches the card.  Slow:
-for tests at golden-fixture size.
+(:class:`repro_torch.kernels.replay.ops.Packed`, NumPy views), in the
+kernel's order: first SSDUP+'s threshold pass (:func:`threshold_pass`: a
+chunk of stream events at a time, the chunk's candidates sorted by the
+kernel's bitonic network, each event's window walked in that order), then
+the chain, which consumes the thresholds, with the kernel's branches (a
+gap or a stream, the FTL or the constant SSD, one dyadic scale), its
+per-lane region-fill loop, NaN-propagating max/min/clamp, ``rint`` and the
+x86 float-to-int conversion.  The CPU tests hold it to the plain torch
+version (:func:`repro_torch.core.engine_device.replay_lanes` on the CPU),
+and the threshold pass alone to the plain version's, so a change of the
+algorithm shows here before it reaches the card.  Slow: for tests at
+golden-fixture size.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
+
+import struct
 
 import numpy as np
 
@@ -63,6 +69,106 @@ def _rint(x: float) -> float:
     return float(np.rint(x))
 
 
+_SIGN = 1 << 63
+_MASK = (1 << 64) - 1
+_NAN_KEY = _MASK - 1
+_PAD_KEY = _MASK
+
+
+def _order_key(v: float) -> int:
+    """torch.sort's order as an unsigned key (the kernel's ``order_key``)."""
+
+    if v != v:
+        return _NAN_KEY
+    u = struct.unpack("<Q", struct.pack("<d", v))[0]
+    return (~u & _MASK) if u & _SIGN else (u | _SIGN)
+
+
+def _key_value(k: int) -> float:
+    u = (k & ~_SIGN) if k & _SIGN else (~k & _MASK)
+    return struct.unpack("<d", struct.pack("<Q", u))[0]
+
+
+def candidates(w: int) -> int:
+    """The candidates a chunk sorts: a power of two ``P >= W + 32``, at
+    least 64; a chunk takes ``P - W`` stream events."""
+
+    p = 64
+    while p < w + 32:
+        p <<= 1
+    return p
+
+
+def _bitonic(cand: list) -> None:
+    """The kernel's ``warp_sort``: ascending by key, in place."""
+
+    n = len(cand)
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j > 0:
+            for x in range(n // 2):
+                lo = ((x & ~(j - 1)) << 1) | (x & (j - 1))
+                hi = lo + j
+                if (cand[lo][0] > cand[hi][0]) == ((lo & k) == 0):
+                    cand[lo], cand[hi] = cand[hi], cand[lo]
+            j >>= 1
+        k <<= 1
+
+
+def threshold_pass(pcts, win0, win_n: int, win_p: int, default_thr: float) -> list[float]:
+    """SSDUP+'s threshold at each of a lane's stream events (percentages
+    ``pcts`` in order), from its initial window ``win0`` (``W`` entries),
+    count ``win_n`` and write slot ``win_p``: the plain version's
+    ``adap_thr`` event by event, computed as the kernel's
+    ``threshold_chunk`` does, a chunk of ``P - W`` events at a time."""
+
+    w = len(win0)
+    p_len = candidates(w)
+    c_len = p_len - w
+    win = [float(v) for v in win0]
+    pcts = [float(v) for v in pcts]
+    n0, p0, out = win_n, win_p, []
+    for k0 in range(0, len(pcts), c_len):
+        pct = pcts[k0:k0 + c_len]
+        n = len(pct)
+        # the window's slots, the chunk's percentages, pads: (key, first, last)
+        cand = [(_order_key(win[x]), 0, (x - p0 + w) % w) for x in range(w)]
+        cand += [(_order_key(pct[c]), c + 1, c + w) for c in range(n)]
+        cand += [(_PAD_KEY, 1 << 31, -1)] * (p_len - w - n)
+        for c in range(n):
+            if c + w >= n:
+                win[(p0 + c) % w] = pct[c]
+        _bitonic(cand)
+        for c in range(n):
+            have = min(n0 + c, w)
+            thr = default_thr
+            if have > 0:
+                total, cnt, x = 0.0, 0, 0
+                while cnt < have:
+                    key, first, last = cand[x]
+                    if first <= c <= last:
+                        total = total + _key_value(key)
+                        cnt += 1
+                    x += 1
+                avg = total / float(have)
+                n2 = min(have + 1, w)
+                idx = min(max(_to_i32(float(np.floor((1.0 - avg) * float(n2)))), 0), n2 - 1)
+                cnt, x = 0, 0
+                while True:
+                    key, first, last = cand[x]
+                    if first <= c + 1 <= last:
+                        if cnt == idx:
+                            thr = _key_value(key)
+                            break
+                        cnt += 1
+                    x += 1
+            out.append(thr)
+        n0 = min(n0 + n, w)
+        p0 = (p0 + n) % w
+    return out
+
+
 def _lane(p: ops.Packed, g: dict, i: int, steps: int) -> dict:
     lf = {k: float(p.lane_f64[j, i]) for j, k in enumerate(ops.LANE_F64)}
     li = {k: int(p.lane_i64[j, i]) for j, k in enumerate(ops.LANE_I64)}
@@ -72,55 +178,25 @@ def _lane(p: ops.Packed, g: dict, i: int, steps: int) -> dict:
         st[k] = bool(st[k])
     scheme, cap, ftl_on = li["scheme"], li["cap"], bool(li["ftl_on"])
     xf = [st[f"xf_{d}"] for d in range(1, XMERGE_D + 1)]
-    w = p.win.shape[1]
-    wv = [float(v) for v in p.win[i]]
-    sv: list[float] = []
-    for v in wv:  # insertion sort, as the kernel starts
-        j = len(sv)
-        sv.append(v)
-        while j > 0 and _before(v, sv[j - 1]):
-            sv[j] = sv[j - 1]
-            j -= 1
-        sv[j] = v
+    valid, is_gap = (p.tape_u8[f, i, :steps].astype(bool) for f in range(2))
+    # the threshold pass, ahead of the chain
+    thresholds: list[float] = []
+    if scheme == 3:
+        rows = np.nonzero(valid & ~is_gap)[0]
+        thresholds = threshold_pass(p.tape_f64[_T["pct"], i, rows], p.win[i], st["win_n"],
+                                    st["win_p"], g["default_thr"])
 
-    def observe(pct: float) -> tuple[bool, bool]:
+    def route(pct: float, thr: float) -> tuple[bool, bool]:
         is_ofs, is_bb, is_plus = scheme == 0, scheme == 1, scheme == 3
         dev_ssd = is_bb or (not is_ofs and st["cur_ssd"])
         allowed = (not is_plus) or (dev_ssd if lf["gate"] < 0.0 else pct >= lf["gate"])
-        if not (scheme == 2 or is_plus):
-            return dev_ssd, allowed
-        have = st["win_n"] > 0
-        avg = 0.0
-        if have and is_plus:
-            total = 0.0
-            for k in range(st["win_n"]):
-                total = total + sv[k]
-            avg = total / float(st["win_n"])
-        old = wv[st["win_p"]]
-        wv[st["win_p"]] = pct
-        k = 0
-        while k < w - 1 and not _same(sv[k], old):
-            k += 1
-        while k + 1 < w and _before(sv[k + 1], pct):
-            sv[k] = sv[k + 1]
-            k += 1
-        while k > 0 and _before(pct, sv[k - 1]):
-            sv[k] = sv[k - 1]
-            k -= 1
-        sv[k] = pct
-        n2 = min(st["win_n"] + 1, w)
-        sr2 = pct > g["static_high"] or (not (pct < g["static_low"]) and st["static_rand"])
-        if is_plus:
-            thr = g["default_thr"]
-            if have:
-                idx = min(max(_to_i32(float(np.floor((1.0 - avg) * float(n2)))), 0), n2 - 1)
-                thr = sv[idx]
-        else:
+        if scheme == 2:
+            sr2 = pct > g["static_high"] or (not (pct < g["static_low"]) and st["static_rand"])
             thr = g["static_low"] if sr2 else g["static_high"]
+            st["static_rand"] = sr2
+        elif not is_plus:
+            return dev_ssd, allowed
         st["cur_ssd"] = pct > thr or (not (pct < thr) and st["cur_ssd"])
-        st["static_rand"] = sr2
-        st["win_n"] = n2
-        st["win_p"] = (st["win_p"] + 1) % w
         return dev_ssd, allowed
 
     def fill_once(ev, nbytes: int, allowed: bool, rem: int, ovf: bool,
@@ -292,16 +368,17 @@ def _lane(p: ops.Packed, g: dict, i: int, steps: int) -> dict:
         if ftl_on:
             st["ftl_live"] = st["ftl_live"] - trim_p
 
-    status = 0
+    status, k = 0, 0
     for t in range(steps):
-        if not p.tape_u8[1, t, i] and p.tape_u8[0, t, i]:
-            col_f = p.tape_f64[:, t, i]
+        if valid[t] and not is_gap[t]:
+            col_f = p.tape_f64[:, i, t]
 
             def ev(name, col_f=col_f):
                 return float(col_f[_T[name]])
 
-            nbytes = int(p.tape_i64[0, t, i])
-            dev_ssd, allowed = observe(ev("pct"))
+            nbytes = int(p.tape_i64[0, i, t])
+            dev_ssd, allowed = route(ev("pct"), thresholds[k] if scheme == 3 else 0.0)
+            k += 1
             rem = nbytes if dev_ssd and cap > 0 else 0
             ovf, cur_xf, fills = False, 0.0, 0
             while rem > 0 and not ovf:
@@ -317,8 +394,8 @@ def _lane(p: ops.Packed, g: dict, i: int, steps: int) -> dict:
             xf[0] = cur_xf
             if dev_ssd:
                 st["peak"] = max(st["peak"], st["a_used"] + st["s_used"])
-        elif p.tape_u8[0, t, i]:
-            gap_step(float(p.tape_f64[_T["gap_sec"], t, i]))
+        elif valid[t]:
+            gap_step(float(p.tape_f64[_T["gap_sec"], i, t]))
 
     d1 = st["j_left"] / st["j_rate"] if st["j_alive"] else 0.0
     has_active = st["a_used"] > 0

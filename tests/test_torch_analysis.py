@@ -495,7 +495,7 @@ def test_torch_forms(rule, bad, source):
 def test_src_repro_torch_is_simlint_clean():
     findings = check_paths([REPO / "src" / "repro_torch", REPO / "chip_smoke.py",
                             REPO / "chip_memory_probe.py", REPO / "chip_stream_variants.py",
-                            REPO / "examples_torch",
+                            REPO / "chip_replay_compare.py", REPO / "examples_torch",
                             REPO / "experiments" / "anomaly_hunt_torch.py"],
                            root=REPO)
     assert findings == [], "\n".join(f.render() for f in findings)

@@ -44,7 +44,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_memory_probe.py",
-                                              REPO / "chip_stream_variants.py"] + ENTRY_FILES,
+                                              REPO / "chip_stream_variants.py",
+                                              REPO / "chip_replay_compare.py"] + ENTRY_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
@@ -407,6 +408,16 @@ def test_chip_smoke_refuses_without_cuda():
                           capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_chip_replay_compare_refuses_without_cuda():
+    """Without a card the replay timing exits nonzero and prints no turn."""
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_replay_compare.py")], env=env,
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 2
+    assert proc.stdout == ""
 
 
 def test_chip_memory_probe_refuses_without_cuda():

@@ -450,6 +450,20 @@ def test_replay_kernel_on_a_wrapping_window(card):
     _replay_on_card(card, *prog._lane_inputs(batch)[:3])
 
 
+@pytest.mark.parametrize("window,warm", [(1, 0), (64, 40), (1024, 0), (1024, 1500)])
+def test_replay_kernel_at_each_window_size(card, window, warm):
+    """SSDUP+'s threshold pass on the card at windows of 1, 64 and 1,024
+    slots (the largest: one chunk of 1,024 events), empty, warmed up in
+    part and full, over tapes of about 300 events a lane (ten ring stages,
+    several chunks at the smaller windows)."""
+
+    batch = sweep_trace(150_000)
+    warmup = list(compute_stream_scores(batch, device="cpu").percentage[:warm]) or None
+    prog = FleetProgram(num_nodes=4, policy="range-offset", ssd_capacity=32 << 20,
+                        adaptive_window=window, threshold_warmup=warmup, device=card)
+    _replay_on_card(card, *prog._lane_inputs(batch)[:3])
+
+
 SERVICE_FAULTS = {
     "healthy": None,
     "crash": lambda: FaultInjector.crash_at(2.5, 2),

@@ -20,6 +20,7 @@ version there.  Here:
 """
 
 import dataclasses
+import importlib.util
 import json
 import pathlib
 import re
@@ -34,7 +35,7 @@ from repro_torch.core.device_model import HDDModel, InterferenceModel, make_stor
 from repro_torch.distributed.sharding import assign_nodes
 from repro_torch.kernels.replay import kernel, ops, ref
 from repro_torch.testing import golden
-from repro_torch.testing.replay_serial import replay_serial
+from repro_torch.testing.replay_serial import candidates, replay_serial, threshold_pass
 from repro_torch.testing.traces import golden_trace, sweep_trace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -95,6 +96,7 @@ def test_globals_and_limits_equal_the_source():
     assert tuple(m.strip() for m in members.split(",")) == ops.GLOBALS
     consts = _constants()
     assert consts["MAX_WINDOW"] == ops.MAX_WINDOW and consts["MAX_FILLS"] == ops.MAX_FILLS
+    assert consts["TAPE_ALIGN"] == ops.TAPE_ALIGN
     assert (consts["SUFFIX_ANCHORS"], consts["N_WINDOWS"], consts["XMERGE_D"]) == \
         (ref.SUFFIX_ANCHORS, ref.N_WINDOWS, ref.XMERGE_D)
 
@@ -112,7 +114,8 @@ def test_binding_matches_the_c_entry_point():
     kernel._bind(Lib)
     want = {"const void*": "c_void_p", "void*": "c_void_p", "double": "c_double", "int": "c_int"}
     assert [t.__name__ for t in Lib.replay_launch.argtypes] == [want[p] for p in params]
-    assert len(params) == 12 + len(ops.GLOBALS) + 4 + 1
+    # the packed parts and the two outputs, the globals, (S, L, W, steps), the stream
+    assert len(params) == len(dataclasses.fields(ops.Packed)) + 2 + len(ops.GLOBALS) + 4 + 1
 
 
 def _fleet_inputs(wl: str, policy: str, ssd=None, cap=None):
@@ -138,16 +141,31 @@ def _fleet_inputs(wl: str, policy: str, ssd=None, cap=None):
 @pytest.mark.parametrize("wl", golden.FIXTURE_WORKLOADS)
 def test_packing_round_trips(wl, ssd):
     events, lanes, state0 = _fleet_inputs(wl, "round-robin-app", ssd=ssd)
+    # a stacked length that is not a multiple of TAPE_ALIGN: the packed tape
+    # pads it with invalid, zero events
+    s, l = events["valid"].shape
+    events = ed.stack_events([{k: v[:, j] for k, v in events.items()} for j in range(l)],
+                             pad_to=s + 3)
     buf, shape = ops.pack(events, lanes, state0)
-    assert shape == (*events["valid"].shape, state0["win"].shape[1])
+    assert shape == (ops.padded_len(s + 3), l, state0["win"].shape[1])
+    assert shape[0] % ops.TAPE_ALIGN == 0 and shape[0] > s + 3
     p = ops.views(torch.from_numpy(buf), *shape)
     for got, want in zip(ops.unpack(p), (events, lanes, state0)):
         assert got.keys() == want.keys()
         for k, v in want.items():
             t = torch.tensor(np.asarray(v))  # the dtype the plain version was given
-            assert got[k].dtype == t.dtype and torch.equal(got[k], t), k
+            rows = got[k][:s + 3] if k in events else got[k]
+            assert rows.dtype == t.dtype and torch.equal(rows, t), k
+            if k in events:
+                assert not got[k][s + 3:].any(), k
     np_views = ops.views(buf, *shape)
-    assert np_views.tape_f64.shape == (len(ops.TAPE_F64), *shape[:2])
+    assert np_views.tape_f64.shape == (len(ops.TAPE_F64), l, shape[0])
+    # one lane's events lie contiguous, field by field, each row on 16 bytes
+    assert np_views.tape_f64[ops.TAPE_F64.index("pct"), 1, :s + 3].tolist() == \
+        events["pct"][:, 1].tolist()
+    for part in (np_views.tape_f64, np_views.tape_i64, np_views.tape_u8):
+        assert (part.ctypes.data - buf.ctypes.data) % 16 == 0
+        assert part.strides[1] % 16 == 0 and part.strides[2] == part.itemsize
     assert np.shares_memory(np_views.win, buf)
 
 
@@ -260,6 +278,135 @@ def test_serial_mirror_carries_a_seeded_nan_to_the_clock(field):
                            ed._stack_lanes([ed.lane_consts("ssdup+", 1 << 26)]),
                            ed._stack_lanes([ed.initial_lane_state("ssdup+", 64)]))
     assert np.isnan(got["io_seconds"][0]) and np.isnan(got["total_seconds"][0])
+
+
+def _plain_thresholds(pcts, win0, win_n, win_p) -> np.ndarray:
+    """The plain version's ``adap_thr`` at each stream event of one SSDUP+
+    lane (``ref._adaptive_threshold``, which ``ref._observe_and_route``
+    reads), stepped one event at a time."""
+
+    win = torch.tensor(np.asarray(win0, dtype=np.float64))[None]
+    n, pos = torch.tensor([win_n], dtype=torch.int32), torch.tensor([win_p], dtype=torch.int32)
+    out = []
+    for v in pcts:
+        thr, win, n, pos = ref._adaptive_threshold(
+            win, n, pos, torch.tensor([v], dtype=torch.float64), G["default_thr"])
+        out.append(float(thr[0]))
+    return np.array(out)
+
+
+def _window_case(w: int, filled: int, events: int, seed: int, nan_at=(), ties=False):
+    """A seeded window of ``w`` slots whose first ``filled`` hold percentages
+    (the rest the +inf pads, as ``initial_lane_state`` leaves them) and
+    ``events`` stream percentages after it, drawn from eight values where
+    ``ties`` (so equal keys meet in the sort), with NaN at ``nan_at``."""
+
+    rng = np.random.default_rng(seed)
+    draw = (lambda n: rng.integers(0, 8, n) / 8.0) if ties else (lambda n: rng.random(n))
+    win0 = np.full(w, np.inf)
+    win0[:filled] = draw(filled)
+    pcts = draw(events)
+    pcts[list(nan_at)] = np.nan
+    return pcts, win0, filled, filled % w
+
+
+def _same_bits(got, want) -> None:
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    assert got.shape == want.shape
+    bad = ~((got == want) | (np.isnan(got) & np.isnan(want)))
+    assert not bad.any(), (np.nonzero(bad)[0][:5], got[bad][:5], want[bad][:5])
+    # the same value, not only equal: -0.0 and 0.0 kept apart
+    assert np.array_equal(np.signbit(got), np.signbit(want))
+
+
+THRESHOLD_CASES = {
+    # W = 1: one slot, every event replaces it
+    "w1-empty": (1, 0, 150, 1), "w1-full": (1, 1, 150, 2),
+    # W = 64: the sweep's window, chunks of 64 events, through three chunks
+    "w64-empty": (64, 0, 300, 3), "w64-part": (64, 40, 300, 4), "w64-full": (64, 64, 300, 5),
+    # W = 1,024, the largest: chunks of 1,024 events, past one chunk's end
+    "w1024-empty": (1024, 0, 1100, 6), "w1024-part": (1024, 700, 1100, 7),
+    "w1024-full": (1024, 1024, 1100, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(THRESHOLD_CASES))
+def test_threshold_pass_equals_plain_adap_thr(case):
+    """The kernel's threshold pass (mirrored by ``threshold_pass``) against
+    the plain version's ``adap_thr`` event by event, bit for bit: windows of
+    1, 64 and 1,024 slots, empty, partly filled (the +inf pads in the sum
+    and the pick) and full, over several chunks of the pass."""
+
+    w, filled, events, seed = THRESHOLD_CASES[case]
+    pcts, win0, n0, p0 = _window_case(w, filled, events, seed)
+    _same_bits(threshold_pass(pcts, win0, n0, p0, G["default_thr"]),
+               _plain_thresholds(pcts, win0, n0, p0))
+
+
+@pytest.mark.parametrize("w,filled", [(1, 1), (7, 3), (64, 0), (64, 64), (1024, 1024)])
+def test_threshold_pass_equals_plain_with_ties_and_nan(w, filled):
+    """Tied percentages (eight values: equal keys meet in the bitonic sort
+    and at the picked index) and two seeded NaN percentages, which sort
+    after +inf: while one is among a window's first entries the mean is
+    NaN and the pick falls to index 0 (with one slot, the NaN itself)."""
+
+    events = 3 * candidates(w) - 2 * w if w < 1024 else 1100
+    pcts, win0, n0, p0 = _window_case(w, filled, events, 11 + w, nan_at=(5, 90), ties=True)
+    got = threshold_pass(pcts, win0, n0, p0, G["default_thr"])
+    want = _plain_thresholds(pcts, win0, n0, p0)
+    _same_bits(got, want)
+    clean = pcts.copy()
+    clean[[5, 90]] = 0.5
+    assert not np.array_equal(want, _plain_thresholds(clean, win0, n0, p0), equal_nan=True)
+    assert np.isnan(want[5]) == (w == 1)
+
+
+def test_threshold_pass_from_a_window_written_midway():
+    """A full window whose next write slot is not 0 and holds the +inf pads
+    in the middle (a window carried over from an earlier replay)."""
+
+    rng = np.random.default_rng(21)
+    win0 = rng.random(64)
+    win0[10:20] = np.inf
+    pcts = rng.random(200)
+    _same_bits(threshold_pass(pcts, win0, 64, 37, G["default_thr"]),
+               _plain_thresholds(pcts, win0, 64, 37))
+
+
+def test_ssdup_lane_does_not_depend_on_its_window():
+    """SSDUP routes by its static watermarks: its lanes' outputs are the
+    same whatever their adaptive window holds (the kernel keeps none), in
+    the plain version and in the mirror; an SSDUP+ lane's do depend on it."""
+
+    events, lanes, state0 = _case("warmup-w7")
+    other = {k: v.copy() for k, v in state0.items()}
+    rng = np.random.default_rng(5)
+    other["win"] = rng.random(other["win"].shape)
+    other["win_n"][:] = other["win"].shape[1]
+    other["win_p"][:] = 3
+    a, b = _serial_vs_plain(events, lanes, state0), _serial_vs_plain(events, lanes, other)
+    ssdup = lanes["scheme"] == ed.SCHEME_IDS["ssdup"]
+    plus = lanes["scheme"] == ed.SCHEME_IDS["ssdup+"]
+    for k in a:
+        assert np.array_equal(a[k][ssdup], b[k][ssdup], equal_nan=True), k
+    assert any(not np.array_equal(a[k][plus], b[k][plus]) for k in a)
+
+
+@pytest.mark.parametrize("name", ["nohdd", "nofill", "nothreshold"])
+def test_timing_ablations_apply_to_todays_source(name):
+    """``chip_replay_compare.py --ablate`` makes each ablation by editing the
+    text of ``replay.cu``; every edit must still fit the source once (one
+    that no longer does raises ``SystemExit`` there, on the card)."""
+
+    spec = importlib.util.spec_from_file_location("chip_replay_compare",
+                                                  REPO / "chip_replay_compare.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert set(mod.ABLATIONS) == {"nohdd", "nofill", "nothreshold"}
+    text = mod.ablated_source(SOURCE, name)
+    assert text != SOURCE
+    for old, new in mod.ABLATIONS[name]:
+        assert old not in text and new in text
 
 
 # -- (c) what the wrapper refuses ----------------------------------------

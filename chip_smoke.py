@@ -38,9 +38,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    exactly once (every lane's whole tape in one launch), as must every
    later call; bytes must be conserved, and the card's result must match
    the same sweep run on the CPU (whether bit for bit is printed); the
-   first call is timed again in parts, scoring per shard and in one
-   launch taking turns; one more steady call is timed after each of the
-   profiled run, the first call's parts and the CPU run; then the
+   first call runs under the profiler, so the tracer records its spans,
+   and their summary (``tracing.summary``: each layer's wall, CPU and self
+   time, host waits and copied bytes) is printed; one more steady call is
+   timed after each of the profiled run and the CPU run; then the
    ``replay`` kernel against its plain torch version on the card on the
    sweep's own packed inputs (integer fields exact, clocks within 1e-9
    relative), timed beside it, and one lane of each scheme alone;
@@ -233,13 +234,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.analysis import sanitize, sanitizing  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import FleetProgram, TraceBatch, compute_stream_scores  # noqa: E402
 from repro_torch.core import FleetResult, FleetSimulator, run_schemes  # noqa: E402
 from repro_torch.core import simulate_device  # noqa: E402
 from repro_torch.core import engine_device as ed  # noqa: E402
-from repro_torch.core.trace import _score_shards_kernel  # noqa: E402
 from repro_torch.core.random_factor import stream_stats_batch_np  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -844,14 +845,14 @@ def phase_golden(dev: torch.device) -> tuple[dict, int]:
     results, and the replay launches."""
 
     runs = {}
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.replay")
     for wl in golden.FIXTURE_WORKLOADS:
         batch = golden_trace(wl)
         for policy in golden.FIXTURE_POLICIES:
             res = runs[wl, policy] = golden_program(dev, batch, policy).run(batch)
-            if replay_ops.launches["replay"] != len(runs):
+            if tracing.counter("launch.replay") != len(runs):
                 fail(f"golden {wl} {policy}: replay launched "
-                     f"{replay_ops.launches['replay'] - len(runs) + 1} times, expected 1")
+                     f"{tracing.counter('launch.replay') - len(runs) + 1} times, expected 1")
             for scheme, fr in res.items():
                 path = golden.GOLDEN_DIR / golden.fixture_name(scheme, wl, policy)
                 payload = golden.load_fixture(path)
@@ -883,50 +884,10 @@ def phase_golden(dev: torch.device) -> tuple[dict, int]:
         fail(f"anomaly ordering lost: {io}")
     log(f"[golden] anomaly: 4 keys met, io_seconds {json.dumps(io)}")
     want = len(runs) + len(golden.ANOMALY_RUNS)
-    if replay_ops.launches["replay"] != want:
-        fail(f"[golden] replay launched {replay_ops.launches['replay']} times, expected {want} "
+    if tracing.counter("launch.replay") != want:
+        fail(f"[golden] replay launched {tracing.counter('launch.replay')} times, expected {want} "
              "(one a FleetProgram run, one a simulate_device)")
-    return runs, replay_ops.launches["replay"]
-
-
-def first_call_parts(dev: torch.device, prog: FleetProgram, batch: TraceBatch,
-                     t_first: float) -> dict:
-    """The sweep's first call in parts, each timed again on its own (host
-    clock, ending in a synchronise): sharding, scoring, tape building.
-    Scoring runs both ways in turns (per shard, one launch, one launch,
-    per shard): one ``compute_stream_scores`` per shard, as before, and
-    ``_score_shards_kernel`` over all shards, as the main path does."""
-
-    def clock(fn) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    shards = prog.shard(batch)
-    t_shard = clock(lambda: prog.shard(batch))
-    ways = {
-        "per_shard": lambda: [compute_stream_scores(b, prog.stream_len, device=dev)
-                              for b in shards],
-        "one_launch": lambda: _score_shards_kernel(shards, prog.stream_len, dev),
-    }
-    times = {k: [] for k in ways}
-    for k in ("per_shard", "one_launch", "one_launch", "per_shard"):
-        times[k].append(clock(ways[k]))
-    scores = _score_shards_kernel(shards, prog.stream_len, dev)
-    t_tapes = clock(lambda: [ed.build_events(b, sc, stream_len=prog.stream_len,
-                                             hdd=prog.hdd, ssd=prog.ssd, link=prog.link)
-                             for b, sc in zip(shards, scores)])
-    out = {"first_call_s": t_first, "shard_s": t_shard, "tapes_s": t_tapes,
-           **{f"score_{k}_s": v for k, v in times.items()},
-           **{f"score_{k}_share": min(v) / t_first for k, v in times.items()}}
-    log(f"[sweep] first call in parts (s): shard {t_shard:.4f}, tapes {t_tapes:.4f}; "
-        f"scoring per shard {json.dumps(times['per_shard'])} "
-        f"({out['score_per_shard_share']:.3%} of the first call), one launch "
-        f"{json.dumps(times['one_launch'])} ({out['score_one_launch_share']:.3%})")
-    log(f"[sweep] first call parts {json.dumps(out)}")
-    return out
+    return runs, tracing.counter("launch.replay")
 
 
 def sweep_capacity(batch: TraceBatch) -> int:
@@ -998,7 +959,7 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     steady calls take turns with 3 calls under ``sanitizing()`` (off, on,
     on, off, off, on), each bit-equal to the first call, before anything
     else runs; then one more unchecked call is timed after each later step
-    (the profiled run, the first call's parts, the CPU run), to show which
+    (the profiled run, the CPU run), to show which
     of them slows the calls after it, and :func:`host_probe` runs before
     the steady calls, after them and after the profiled and CPU runs.  Returns the launch counts, the
     wide-branch rows, the result, the best steady time, the program and
@@ -1014,13 +975,18 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
               ssd_capacity=cap, ssd=ssd)
     prog = FleetProgram(device=dev, **kw)
     kernel.wide_rows(reset=True)
-    ops.reset_launches()
-    replay_ops.reset_launches()
-    t0 = time.perf_counter()
-    res = prog.run(batch)  # scores every shard on the card, builds tapes
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = dict(ops.launches, **replay_ops.launches)
+    tracing.reset_counters()
+    tracing.take()
+    # the profiler records the first call's device work and turns the
+    # tracer's spans on
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        t0 = time.perf_counter()
+        res = prog.run(batch)  # scores every shard on the card, builds tapes
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+    first_spans = tracing.summary(tracing.take())
+    first_counts = tracing.counters()
+    launches = launch_counts("stream_stats", "stream_rf", "replay")
     wide = kernel.wide_rows(reset=True)
     if launches["stream_stats"] != 1:
         fail(f"{tag} stream_stats launched {launches['stream_stats']} times on the "
@@ -1031,14 +997,14 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
 
     def one_call() -> float:
         nonlocal res
-        replay_ops.reset_launches()
+        tracing.reset_counters("launch.replay")
         torch.cuda.synchronize()
         t0, cpu0 = time.perf_counter(), time.thread_time()
         res = prog.run(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         times["cpu_share"].append((time.thread_time() - cpu0) / wall)
-        one_replay(tag, "a steady call", replay_ops.launches["replay"])
+        one_replay(tag, "a steady call", tracing.counter("launch.replay"))
         return wall
 
     # cpu_share: the main thread's CPU time over the wall time of each call
@@ -1053,9 +1019,9 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     t_best = min(steady)
     if probe:
         probes["after_steady"] = host_probe(dev)
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.replay")
     t_prof, busy, n_ops = device_time(lambda: prog.run(batch))
-    one_replay(tag, "the profiled call", replay_ops.launches["replay"])
+    one_replay(tag, "the profiled call", tracing.counter("launch.replay"))
     if probe:
         probes["after_profiled_run"] = host_probe(dev)
         times["after"]["profiled_run"] = one_call()
@@ -1066,15 +1032,13 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     log(f"{tag} first call {t_first:.3f} s (scoring + tapes + replay), "
         f"steady {json.dumps(steady)} s, best {t_best:.3f} s = "
         f"{lanes / t_best:.1f} lanes/s")
+    log(f"{tag} first call's spans (ms, counts): {json.dumps(first_spans)}; "
+        f"counters {json.dumps(first_counts)}")
     log(f"{tag} profiled steady run {t_prof:.3f} s: device busy "
         f"{busy:.4f} s ({busy / t_prof:.2%}), {n_ops} device ops")
     log(f"{tag} launches on the main path: {json.dumps(launches)}; rows scored "
         f"by the stream kernel's wide branch: {wide}")
     log(f"{tag} total bytes per scheme: {json.dumps(totals)}")
-
-    if probe:
-        first_call_parts(dev, prog, batch, t_first)
-        times["after"]["first_call_parts"] = one_call()
 
     t0 = time.perf_counter()
     cpu_res = FleetProgram(device="cpu", **kw).run(batch)
@@ -1098,6 +1062,13 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
         f"({(busy + held['ms'] / 1e3) / t_prof:.2%}), {n_ops} + 1 device ops")
     log(f"{tag} sweep and card-vs-cpu {time.perf_counter() - t_phase:.1f} s")
     return launches, wide, res, t_best, prog, times, held
+
+
+def launch_counts(*kernels: str) -> dict:
+    """Each kernel's launches since its counter was last reset (the
+    tracer's ``launch.<kernel>``)."""
+
+    return {k: tracing.counter(f"launch.{k}") for k in kernels}
 
 
 def one_replay(tag: str, what: str, n: int) -> None:
@@ -1276,14 +1247,14 @@ def phase_host_engines(dev: torch.device, batch: TraceBatch, swept: dict,
 
     t_phase = time.perf_counter()
     cap = sweep_capacity(batch)
-    ops.reset_launches()
+    tracing.reset_counters("launch.stream_")
     t0 = time.perf_counter()
     host = {s: FleetSimulator(num_nodes=SWEEP_NODES, scheme=s, policy="range-offset",
                               ssd_capacity=cap, engine="batched", score_backend="kernel",
                               device=dev).run(batch) for s in SCHEMES}
     torch.cuda.synchronize()
     t_host = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    launches = launch_counts("stream_stats", "stream_rf")
     if launches["stream_stats"] != len(SCHEMES):
         fail(f"FleetSimulator: stream_stats launched {launches['stream_stats']} times, "
              f"expected {len(SCHEMES)} (one per run, all shards at once)")
@@ -1292,7 +1263,7 @@ def phase_host_engines(dev: torch.device, batch: TraceBatch, swept: dict,
     log(f"[host] FleetSimulator(engine='batched') {SWEEP_NODES} nodes x {len(SCHEMES)} "
         f"schemes: {t_host:.2f} s (the sweep's FleetProgram: best {t_sweep:.3f} s); "
         f"FleetProgram within DEVICE_TOLERANCES of it; launches {json.dumps(launches)}")
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.replay")
     for wl in golden.FIXTURE_WORKLOADS:
         gb = golden_trace(wl)
         kw = dict(ssd_capacity=golden._node_capacity(gb.total_bytes))
@@ -1314,7 +1285,7 @@ def phase_host_engines(dev: torch.device, batch: TraceBatch, swept: dict,
         log(f"[host] run_schemes {wl}: batched on the card == CPU exactly, device "
             f"engine card == cpu (clocks {worst:.3g}); io_seconds {json.dumps(io)} "
             f"({t_runs:.2f} s)")
-    launches["replay"] = replay_ops.launches["replay"]
+    launches["replay"] = tracing.counter("launch.replay")
     if launches["replay"] != len(golden.FIXTURE_WORKLOADS) * len(SCHEMES):
         fail(f"run_schemes(engine='device'): replay launched {launches['replay']} times, "
              f"expected {len(golden.FIXTURE_WORKLOADS) * len(SCHEMES)} (one a scheme)")
@@ -1397,13 +1368,13 @@ def serve_once(dev: torch.device, label: str, batch: TraceBatch, **kw) -> dict:
     numbers and the scoring calls."""
 
     svc = ReshardCountingService(device=dev, **kw)
-    ops.reset_launches()
+    tracing.reset_counters("launch.stream_")
     with ScoringCalls() as scoring:
         t0 = time.perf_counter()
         res = svc.run(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    launches = launch_counts("stream_stats", "stream_rf")
     m = res.metrics
     violations = m.conservation_violations()
     if violations:
@@ -1556,8 +1527,7 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
     cap = sweep_capacity(batch)
     out = {}
     for stream_len in (96, 2048):
-        ops.reset_launches()
-        replay_ops.reset_launches()
+        tracing.reset_counters("launch.")
         kernel.long_rows(reset=True)
         kernel.long_wide_rows(reset=True)
         t0 = time.perf_counter()
@@ -1565,7 +1535,7 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
                            stream_len=stream_len, ssd_capacity=cap, device=dev).run(batch)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-        launches = dict(ops.launches, **replay_ops.launches)
+        launches = launch_counts("stream_stats", "stream_rf", "replay")
         one_replay("[any-len]", f"the stream_len={stream_len} sweep", launches["replay"])
         long = kernel.long_rows(reset=True)
         exact = kernel.long_wide_rows(reset=True)
@@ -1648,17 +1618,14 @@ def run_script(label: str, main, argv: list) -> dict:
     echoed, with every kernel's launches and the fleet runs counted from
     zero; returns what it returned, printed, launched and took."""
 
-    ops.reset_launches()
-    fa_ops.reset_launches()
-    ssm_ops.reset_launches()
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.")
     buf = io.StringIO()
     with CountedRuns() as counted, contextlib.redirect_stdout(buf):
         t0 = time.perf_counter()
         out = main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = dict(ops.launches, **fa_ops.launches, **ssm_ops.launches, **replay_ops.launches)
+    launches = launch_counts("stream_stats", "stream_rf", "flash_attention", "ssm_scan", "replay")
     for line in buf.getvalue().splitlines():
         log(f"[examples]   {label} | {line}")
     log(f"[examples] {label}: {wall:.3f} s on the card; launches {json.dumps(launches)}, "
@@ -1832,9 +1799,9 @@ def same_fleet(label: str, got: dict, want: dict) -> None:
 def stream_launches(fn):
     """``fn()``'s result and the ``stream_stats`` launches it made."""
 
-    ops.reset_launches()
+    tracing.reset_counters("launch.stream_")
     out = fn()
-    return out, ops.launches["stream_stats"]
+    return out, tracing.counter("launch.stream_stats")
 
 
 def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swept: dict,
@@ -1861,8 +1828,7 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
     launches, out = {}, {}
 
     t0 = time.perf_counter()
-    ops.reset_launches()
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.")
     for (wl, policy), plain in golden_runs.items():
         gb = golden_trace(wl)
         with sanitizing():
@@ -1873,8 +1839,8 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
             diffs = golden.check_fixture(payload, fr, tolerances=payload["device_tolerance"])
             if diffs:
                 fail(f"[sanitize] (a) {s}__{wl}__{policy}:\n" + "\n".join(diffs))
-    launches["golden"] = ops.launches["stream_stats"]
-    replays = {"golden": replay_ops.launches["replay"]}
+    launches["golden"] = tracing.counter("launch.stream_stats")
+    replays = {"golden": tracing.counter("launch.replay")}
     if replays["golden"] != len(golden_runs):
         fail(f"[sanitize] (a) replay launched {replays['golden']} times, expected "
              f"{len(golden_runs)} (one a program)")
@@ -1885,8 +1851,7 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
         f"the unsanitized card runs, within device_tolerance; {launches['golden']} launches "
         f"for {len(golden_runs)} programs; {time.perf_counter() - t0:.2f} s")
 
-    ops.reset_launches()
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.")
     with sanitizing():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1894,8 +1859,8 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
         torch.cuda.synchronize()
         t_late = time.perf_counter() - t0
     same_fleet("(b) sweep (checks on)", res, swept)
-    launches["sweep"] = ops.launches["stream_stats"]
-    replays["sweep"] = replay_ops.launches["replay"]
+    launches["sweep"] = tracing.counter("launch.stream_stats")
+    replays["sweep"] = tracing.counter("launch.replay")
     one_replay("[sanitize] (b)", "the checked sweep call", replays["sweep"])
     if launches["sweep"] != 0:
         fail(f"[sanitize] (b) stream_stats launched {launches['sweep']} times on the sweep's "
@@ -1935,7 +1900,7 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
     args = (ed.stack_events([tape]),
             ed._stack_lanes([ed.lane_consts("ssdup+", golden._node_capacity(gb.total_bytes))]),
             ed._stack_lanes([ed.initial_lane_state("ssdup+", 64)]))
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.replay")
     with sanitizing():
         try:
             ed.replay_lanes(*args, device=dev)
@@ -1950,7 +1915,7 @@ def phase_sanitize(dev: torch.device, batch: TraceBatch, golden_runs: dict, swep
         io = ed.replay_lanes(*args, device=dev)["io_seconds"]
     if not np.isnan(io[0]):
         fail(f"[sanitize] (c) unsanitized, the NaN did not reach io_seconds: {io[0]!r}")
-    replays["seeded_nan"] = replay_ops.launches["replay"]
+    replays["seeded_nan"] = tracing.counter("launch.replay")
     if replays["seeded_nan"] != 2:
         fail(f"[sanitize] (c) replay launched {replays['seeded_nan']} times, expected 2")
     log(f"[sanitize] (c) NaN in net_t[0] of the mixed-burst tape on the card, through the "
@@ -2243,12 +2208,11 @@ def phase_serve(dev: torch.device, arch: str) -> dict:
     kw = dict(batch=SERVE_BATCH, prompt_len=prompt, gen=SERVE_GEN, seed=SERVE_SEED,
               device=dev, params=params, **extra)
 
-    fa_ops.reset_launches()
-    ssm_ops.reset_launches()
+    tracing.reset_counters("launch.")
     res = serve(cfg, **kw)
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa_ops.launches["flash_attention"],
-                "ssm_scan": ssm_ops.launches["ssm_scan"]}
+    launches = {"flash_attention": tracing.counter("launch.flash_attention"),
+                "ssm_scan": tracing.counter("launch.ssm_scan")}
     if launches[name] < expected:
         fail(f"{arch}: {name} launched {launches[name]} times on the main path, "
              f"expected >= {expected} (one a layer, or a shared-attention group, of the "
@@ -2757,8 +2721,7 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
     model = get_model(cfg, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.reset_launches()
-    ssm_ops.reset_launches()
+    tracing.reset_counters("launch.")
     params = model.init_params(SERVE_SEED)
     n_params = sum(p.numel() for p in params.parameters())
     save_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
@@ -2864,8 +2827,8 @@ def phase_train(dev: torch.device, arch: str, layers, steps: int, async_after: i
         live, _ = kernel_model.prefill(params, inputs)
         back, _ = kernel_model.prefill(restored, inputs)
         plain, _ = model.prefill(restored, inputs)
-    launches = {"flash_attention": fa_ops.launches["flash_attention"],
-                "ssm_scan": ssm_ops.launches["ssm_scan"]}
+    launches = {"flash_attention": tracing.counter("launch.flash_attention"),
+                "ssm_scan": tracing.counter("launch.ssm_scan")}
     if launches[name] != 2 * per_prefill:
         fail(f"{arch}: {name} launched {launches[name]} times serving the restored "
              f"checkpoint, expected {2 * per_prefill} (two kernel prefills)")
@@ -3093,14 +3056,14 @@ def phase_lever_serve(dev: torch.device) -> dict:
     model = get_model(cfg, dev)
     torch.cuda.empty_cache()
     params = model.init_params(SERVE_SEED)
-    fa_ops.reset_launches()
+    tracing.reset_counters("launch.flash_attention")
     runs, peaks = {}, {}
     for label, over in (("plain", {}), ("embed_onehot", {"embed_onehot": True}),
                         ("fp8_weights", {"matmul_weight_dtype": FP8})):
         torch.cuda.reset_peak_memory_stats()
         runs[label] = serve_twice(dataclasses.replace(cfg, **over), params, dev)
         peaks[label] = torch.cuda.max_memory_allocated() / 2**30
-    launches = fa_ops.launches["flash_attention"]
+    launches = tracing.counter("launch.flash_attention")
     if launches != 6 * cfg.n_layers:
         fail(f"lever serve: flash_attention launched {launches} times in six prefills of "
              f"{cfg.n_layers} layers")
@@ -3155,11 +3118,11 @@ def _grok_fp8_serve(dev: torch.device, depth: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.reset_launches()
+    tracing.reset_counters("launch.flash_attention")
     params = get_model(cfg, dev).init_params(SERVE_SEED)
     res = serve_twice(cfg, params, dev)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = fa_ops.launches["flash_attention"]
+    launches = tracing.counter("launch.flash_attention")
     if launches != 2 * depth:
         fail(f"grok fp8 at {depth} layers: flash_attention launched {launches} times in two "
              "prefills")
@@ -3393,11 +3356,10 @@ def _mesh_run(dev: torch.device, mesh, arch: str, layers, batch_n: int, seq: int
     # argmax breaks otherwise does not change the input
     kw = dict(device=dev, decode_steps=MESH_DECODE, lr=TRAIN_LR, serve_first=True)
     plain = sharded_steps(cfg, tree, batch, None, **kw)
-    fa_ops.reset_launches()
-    ssm_ops.reset_launches()
+    tracing.reset_counters("launch.")
     sharded = sharded_steps(cfg, tree, batch, mesh, decode_tokens=plain["decode_tokens"], **kw)
-    launches = {"flash_attention": fa_ops.launches["flash_attention"],
-                "ssm_scan": ssm_ops.launches["ssm_scan"]}
+    launches = {"flash_attention": tracing.counter("launch.flash_attention"),
+                "ssm_scan": tracing.counter("launch.ssm_scan")}
     restored_leaves = 0
     if ckpt_root is not None:
         ckpt = Checkpointer(TieredCheckpointStore(ckpt_root))

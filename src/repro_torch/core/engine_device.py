@@ -46,6 +46,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..analysis import sanitize as _sanitize
 from ..device import resolve_device
 from ..kernels.replay import ops as replay_ops
@@ -514,18 +515,21 @@ def _check_outputs(out: Mapping[str, torch.Tensor]) -> None:
     anywhere in the replay reaches an output clock; ledgers are
     non-negative; io time never exceeds total time."""
 
+    def holds(t: torch.Tensor) -> bool:
+        return bool(tracing.to_host(t.all()))
+
     for k in ("io_seconds", "total_seconds", "flush_paused_seconds",
               "blocked_seconds"):
-        _sanitize.check(bool(torch.isfinite(out[k]).all()),
+        _sanitize.check(holds(torch.isfinite(out[k])),
                         "device replay invariant violated: non-finite %s", k)
-        _sanitize.check(bool((out[k] >= 0).all()),
+        _sanitize.check(holds(out[k] >= 0),
                         "device replay invariant violated: negative %s", k)
     for k in ("bytes_to_ssd", "bytes_to_hdd_direct", "flushes",
               "peak_ssd_occupancy"):
-        _sanitize.check(bool((out[k] >= 0).all()),
+        _sanitize.check(holds(out[k] >= 0),
                         "device replay invariant violated: negative %s", k)
     _sanitize.check(
-        bool((out["total_seconds"] >= out["io_seconds"]).all()),
+        holds(out["total_seconds"] >= out["io_seconds"]),
         "device replay invariant violated: io_seconds exceeds total_seconds",
     )
 
@@ -555,12 +559,14 @@ def replay_lanes(
     output invariant raises :class:`SanitizerError`.
     """
 
-    packed, g, steps = replay_inputs(events, lanes, state0, hdd, interference, device)
-    with torch.no_grad():
+    with tracing.span("pack"):
+        packed, g, steps = replay_inputs(events, lanes, state0, hdd, interference, device)
+    with torch.no_grad(), tracing.span("replay"):
         out = replay_ops.replay_op(packed, g, steps)
         if _sanitize.resolve(sanitize):
             _check_outputs(out)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    with tracing.span("readback"):
+        return {k: tracing.to_host(v).numpy() for k, v in out.items()}
 
 
 def replay_inputs(

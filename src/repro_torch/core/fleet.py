@@ -25,6 +25,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import tracing
 from ..analysis import sanitize as _sanitize
 from ..device import resolve_device
 from ..distributed.sharding import TRACE_POLICIES, assign_nodes
@@ -303,15 +304,20 @@ class FleetProgram:
 
     def _tapes(self, batch: TraceBatch) -> tuple[list, list]:
         if self._tape_cache is not None and self._tape_cache[0] is batch:
+            tracing.count("tape_cache.hit")
             return self._tape_cache[1], self._tape_cache[2]
-        shards = self.shard(batch)
-        scores = _score_all(shards, self.stream_len, self.score_backend, self.device)
-        tapes = [
-            ed.build_events(shard, sc, stream_len=self.stream_len,
-                            hdd=self.hdd, ssd=self.ssd, link=self.link)
-            for shard, sc in zip(shards, scores)
-        ]
-        per_app = [ed.per_app_bytes(shard) for shard in shards]
+        tracing.count("tape_cache.miss")
+        with tracing.span("shard"):
+            shards = self.shard(batch)
+        with tracing.span("score"):
+            scores = _score_all(shards, self.stream_len, self.score_backend, self.device)
+        with tracing.span("tapes"):
+            tapes = [
+                ed.build_events(shard, sc, stream_len=self.stream_len,
+                                hdd=self.hdd, ssd=self.ssd, link=self.link)
+                for shard, sc in zip(shards, scores)
+            ]
+            per_app = [ed.per_app_bytes(shard) for shard in shards]
         self._tape_cache = (batch, tapes, per_app)
         return tapes, per_app
 
@@ -323,16 +329,17 @@ class FleetProgram:
 
         tapes, per_app = self._tapes(batch)
         n = self.num_nodes
-        events = ed.stack_events([tapes[i] for _ in self.schemes for i in range(n)])
-        lanes = ed._stack_lanes([
-            ed.lane_consts(s, self.ssd_capacity, self.flush_gate, ssd=self.ssd)
-            for s in self.schemes for _ in range(n)
-        ])
-        state0 = ed._stack_lanes([
-            ed.initial_lane_state(s, self.adaptive_window, self.threshold_warmup,
-                                  ssd=self.ssd)
-            for s in self.schemes for _ in range(n)
-        ])
+        with tracing.span("stack"):
+            events = ed.stack_events([tapes[i] for _ in self.schemes for i in range(n)])
+            lanes = ed._stack_lanes([
+                ed.lane_consts(s, self.ssd_capacity, self.flush_gate, ssd=self.ssd)
+                for s in self.schemes for _ in range(n)
+            ])
+            state0 = ed._stack_lanes([
+                ed.initial_lane_state(s, self.adaptive_window, self.threshold_warmup,
+                                      ssd=self.ssd)
+                for s in self.schemes for _ in range(n)
+            ])
         return events, lanes, state0, per_app
 
     def _replay(self, batch: TraceBatch) -> tuple[dict, list]:
@@ -353,18 +360,20 @@ class FleetProgram:
         """
 
         batch = trace if isinstance(trace, TraceBatch) else TraceBatch.from_items(trace)
-        out, per_app = self._replay(batch)
-        n = self.num_nodes
-        return {
-            scheme: FleetResult(
-                scheme=scheme, policy=self.policy, num_nodes=n,
-                node_results=tuple(
-                    ed.lane_result(out, si * n + i, scheme, per_app[i])
-                    for i in range(n)
-                ),
-            )
-            for si, scheme in enumerate(self.schemes)
-        }
+        with tracing.span("sweep"):
+            out, per_app = self._replay(batch)
+            n = self.num_nodes
+            with tracing.span("results"):
+                return {
+                    scheme: FleetResult(
+                        scheme=scheme, policy=self.policy, num_nodes=n,
+                        node_results=tuple(
+                            ed.lane_result(out, si * n + i, scheme, per_app[i])
+                            for i in range(n)
+                        ),
+                    )
+                    for si, scheme in enumerate(self.schemes)
+                }
 
 
 def run_fleet_schemes(

@@ -30,6 +30,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from .random_factor import DEFAULT_STREAM_LEN, Request, stream_stats_batch_np
 
@@ -392,12 +393,12 @@ def _score_shards_kernel(
     rf = np.zeros(0, dtype=np.int64)
     dist = rf
     if rows[-1]:
-        both = torch.from_numpy(both).to(device)  # one copy
+        both = tracing.to_device(torch.from_numpy(both), device)  # one copy
         true_lens = None
         if not all(f[1] for f in filled):
-            true_lens = torch.from_numpy(np.concatenate(lens)).to(device)
+            true_lens = tracing.to_device(torch.from_numpy(np.concatenate(lens)), device)
         rf_d, _, dist_d = stream_stats_op(both[0], both[1], true_lens)
-        rf, dist = torch.stack([rf_d, dist_d]).cpu().numpy()  # one readback
+        rf, dist = tracing.to_host(torch.stack([rf_d, dist_d])).numpy()  # one readback
     out = []
     for b, n, lo, hi in zip(batches, lens, rows[:-1], rows[1:]):
         nbytes, osum = b.stream_sums(stream_len)

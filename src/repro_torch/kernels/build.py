@@ -6,7 +6,9 @@ use, under ``build/kernels/`` at the root of the checkout, and loaded with
 :mod:`ctypes`.  The library's name carries a hash of the source and the
 flags, so an edited kernel is rebuilt and a stale build is never loaded.
 Nothing here runs at import time: the CPU tests import every kernel module
-on machines without ``nvcc``.
+on machines without ``nvcc``.  The tracer counts each ``nvcc`` run under
+``kernel.build.<source>`` (timed as a ``build`` span while spans are
+recorded) and each library loaded under ``kernel.load.<source>``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from typing import Callable
+
+from .. import tracing
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -65,10 +69,12 @@ class CudaLibrary:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        proc = subprocess.run(
-            [nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
-            capture_output=True, text=True, check=False,
-        )
+        tracing.count(f"kernel.build.{self.source.stem}")
+        with tracing.span("build"):
+            proc = subprocess.run(
+                [nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
+                capture_output=True, text=True, check=False,
+            )
         self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -82,6 +88,7 @@ class CudaLibrary:
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.build()))
+                tracing.count(f"kernel.load.{self.source.stem}")
                 self._bind(lib)
                 self._lib = lib
             return self._lib

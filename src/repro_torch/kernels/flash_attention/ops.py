@@ -18,8 +18,9 @@ The kernel masks ragged tiles itself, so any sequence length works, and
 ``block_q``/``block_k`` (kept for the reference's signature, which needs
 them to divide the sequence) cannot change the result.
 
-``launches["flash_attention"]`` counts kernel launches, so a run can show
-that its path went through the kernel.
+The tracer's counter ``launch.flash_attention`` counts kernel launches
+(:mod:`repro_torch.tracing`), so a run can show that its path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -28,15 +29,11 @@ import math
 
 import torch
 
+from ... import tracing
 from . import ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-launches = {"flash_attention": 0}
-
-
-def reset_launches() -> None:
-    launches["flash_attention"] = 0
 
 
 def _check(q, k, v, seq_dim: int, head_dim: int, block_q: int, block_k: int) -> None:
@@ -95,7 +92,7 @@ def _launch(q, k, v, *, causal: bool, scale: float, seq_dim: int, head_dim: int)
             k.shape[seq_dim], q.shape[3], scale, int(causal), *strides, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    launches["flash_attention"] += 1
+    tracing.count("launch.flash_attention")
     return out
 
 

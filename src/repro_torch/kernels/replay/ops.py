@@ -25,8 +25,8 @@ the current stream and raises if it cannot be built or launched, or if a
 lane's region-fill loop ran past :data:`MAX_FILLS` iterations in one
 event (where the plain version would never end); on CPU tensors it runs
 the plain torch version (:mod:`repro_torch.kernels.replay.ref`).  There is
-no fallback from the card to the plain version.  ``launches["replay"]``
-counts kernel launches.
+no fallback from the card to the plain version.  The tracer's counter
+``launch.replay`` counts kernel launches (:mod:`repro_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from ... import tracing
 from . import ref
 from .ref import N_WINDOWS, SUFFIX_ANCHORS, XMERGE_D
 
@@ -79,13 +80,6 @@ _NARROW = {"scheme": torch.int32, "ftl_on": torch.bool, "flushes": torch.int32,
            "win_n": torch.int32, "win_p": torch.int32, "j_alive": torch.bool,
            "static_rand": torch.bool, "cur_ssd": torch.bool, "valid": torch.bool,
            "is_gap": torch.bool}
-
-launches = {"replay": 0}
-
-
-def reset_launches() -> None:
-    launches["replay"] = 0
-
 
 @dataclasses.dataclass(frozen=True)
 class Packed:
@@ -171,7 +165,7 @@ def to_device(events, lanes, state0, device) -> Packed:
     """:func:`pack` and one copy of the buffer to ``device``."""
 
     buf, shape = pack(events, lanes, state0)
-    return views(torch.from_numpy(buf).to(device), *shape)
+    return views(tracing.to_device(torch.from_numpy(buf), device), *shape)
 
 
 def unpack(p: Packed) -> tuple[dict, dict, dict]:
@@ -230,7 +224,7 @@ def launcher(p: Packed, g: Sequence[float], steps: int):
     tensors, as :func:`replay_op` checks them, on the current device) on
     that device's current stream and raises if the launch is refused.  It
     reads nothing back; its outputs are ``.out_f64`` and ``.out_i64`` (rows
-    :data:`OUT_F64`, :data:`OUT_I64`).  Not counted in ``launches``."""
+    :data:`OUT_F64`, :data:`OUT_I64`).  Not counted in ``launch.replay``."""
 
     from .kernel import load  # builds with nvcc on first use
 
@@ -258,13 +252,8 @@ def _launch(p: Packed, g: Sequence[float], steps: int) -> dict:
     run = launcher(p, g, steps)
     with torch.cuda.device(p.tape_f64.device):
         run()
-    launches["replay"] += 1
-    out = {**dict(zip(OUT_F64, run.out_f64)), **dict(zip(OUT_I64, run.out_i64))}
-    if bool(out.pop("status").any()):
-        raise RuntimeError(f"replay kernel: a lane's region fills passed {MAX_FILLS} "
-                           "in one event")
-    out["flushes"] = out["flushes"].to(torch.int32)
-    return {k: out[k] for k in ref.OUTPUTS}
+    tracing.count("launch.replay")
+    return {**dict(zip(OUT_F64, run.out_f64)), **dict(zip(OUT_I64, run.out_i64))}
 
 
 def plain(p: Packed, g: Sequence[float], steps: int) -> dict[str, torch.Tensor]:
@@ -280,9 +269,16 @@ def replay_op(p: Packed, g: Sequence[float], steps: int) -> dict[str, torch.Tens
     events, then drained; ``g`` the :data:`GLOBALS` in order.  Returns the
     :data:`ref.OUTPUTS` as tensors on ``p``'s device."""
 
-    _check(p, g, steps)
+    _, l, _ = _check(p, g, steps)
     if p.tape_f64.device.type == "cpu":
-        return plain(p, g, steps)
-    if p.tape_f64.device.type == "cuda":
-        return _launch(p, g, steps)
-    raise ValueError(f"no replay kernel for device {p.tape_f64.device}")
+        # the plain version runs every fill loop to its end: it stops no lane
+        out = {**plain(p, g, steps), "status": torch.zeros(l, dtype=torch.int64)}
+    elif p.tape_f64.device.type == "cuda":
+        out = _launch(p, g, steps)
+    else:
+        raise ValueError(f"no replay kernel for device {p.tape_f64.device}")
+    if bool(tracing.to_host(out.pop("status").any())):
+        raise RuntimeError(f"replay kernel: a lane's region fills passed {MAX_FILLS} "
+                           "in one event")
+    out["flushes"] = out["flushes"].to(torch.int32)
+    return {k: out[k] for k in ref.OUTPUTS}

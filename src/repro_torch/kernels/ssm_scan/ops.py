@@ -14,22 +14,19 @@ CPU tensor it runs the plain torch version
 (:mod:`repro_torch.kernels.ssm_scan.ref`).  There is no fallback from the
 card to the plain version.
 
-``launches["ssm_scan"]`` counts kernel launches, so a run can show that
-its path went through the kernel.
+The tracer's counter ``launch.ssm_scan`` counts kernel launches
+(:mod:`repro_torch.tracing`), so a run can show that its path went
+through the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import tracing
 from . import ref
 
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-launches = {"ssm_scan": 0}
-
-
-def reset_launches() -> None:
-    launches["ssm_scan"] = 0
 
 
 def _check(delta, B_ssm, C_ssm, x, A, block_d: int, chunk: int) -> None:
@@ -78,7 +75,7 @@ def _launch(delta, B_ssm, C_ssm, x, A):
             b, s, di, n, stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {err}")
-    launches["ssm_scan"] += 1
+    tracing.count("launch.ssm_scan")
     return y, h_last
 
 

@@ -17,26 +17,21 @@ built or launched; on a CPU tensor they run the plain torch version
 (:mod:`repro_torch.kernels.stream_rf.ref`).  There is no fallback from
 the card to the plain version.
 
-``launches`` counts the kernel launches of each wrapper, so a run can show
-that its path went through the kernel.
+The tracer's counters ``launch.stream_stats`` and ``launch.stream_rf``
+count the kernel launches of each wrapper (:mod:`repro_torch.tracing`), so
+a run can show that its path went through the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import tracing
 from . import ref
-
-launches = {"stream_stats": 0, "stream_rf": 0}
 
 #: The longest row the kernel scores (its long-row branch keeps a whole row
 #: in one block's shared memory).
 MAX_STREAM_LEN = 8192
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def _checked(offsets: torch.Tensor, sizes, lengths=None):
@@ -96,7 +91,7 @@ def _launch(offs: torch.Tensor, szs: torch.Tensor, lens, with_dist: bool):
         )
     if err != 0:
         raise RuntimeError(f"stream_rf kernel launch failed: cudaError {err}")
-    launches["stream_stats" if with_dist else "stream_rf"] += 1
+    tracing.count("launch.stream_stats" if with_dist else "launch.stream_rf")
     return rf, dist
 
 

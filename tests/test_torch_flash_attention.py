@@ -17,6 +17,7 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention_bshd as jax_bshd
 from repro.kernels.flash_attention.ops import flash_attention_op as jax_op
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
+from repro_torch import tracing
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel, ops, ref
 
@@ -208,11 +209,11 @@ def test_tma_alignment_copies_only_what_tma_cannot_read():
 
 
 def test_cpu_runs_the_plain_version_and_counts_no_launch():
-    ops.reset_launches()
+    tracing.reset_counters("launch.")
     q = torch.randn(1, 2, 8, 16)
     ops.flash_attention_op(q, q, q)
     ops.flash_attention_bshd(q, q, q)
-    assert ops.launches["flash_attention"] == 0
+    assert tracing.counter("launch.flash_attention") == 0
 
 
 def test_other_devices_raise():

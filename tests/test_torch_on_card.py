@@ -23,6 +23,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax, tree_from_params
 from repro_torch.optim import AdamWConfig, init_state, linear_warmup_cosine
+from repro_torch import tracing
 from repro_torch.analysis import sanitizing
 from repro_torch.core import FleetProgram, compute_stream_scores
 from repro_torch.core import engine_device as ed
@@ -126,10 +127,10 @@ def test_flash_attention_refuses_a_head_dim_without_an_instance(card, dtype):
     no fallback to the plain version."""
 
     q = torch.zeros(1, 2, 8, 96, dtype=dtype, device=card)
-    fa_ops.reset_launches()
+    tracing.reset_counters("launch.")
     with pytest.raises(ValueError, match="head_dim 96"):
         fa_ops.flash_attention_op(q, q, q)
-    assert fa_ops.launches["flash_attention"] == 0
+    assert tracing.counter("launch.flash_attention") == 0
 
 
 def test_flash_attention_bf16_views_tma_cannot_read(card):
@@ -233,10 +234,9 @@ def test_serve_smoke_config_goes_through_the_kernel(card, arch, head_dim):
     cfg = get_smoke_config(arch)
     if head_dim is not None:
         cfg = dataclasses.replace(cfg, head_dim=head_dim)
-    fa_ops.reset_launches()
-    ssm_ops.reset_launches()
+    tracing.reset_counters("launch.")
     res = serve(cfg, batch=2, prompt_len=16, gen=4, seed=0, device=card)
-    launched = fa_ops.launches["flash_attention"] + ssm_ops.launches["ssm_scan"]
+    launched = tracing.counter("launch.flash_attention") + tracing.counter("launch.ssm_scan")
     per_prefill = {"hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1),
                    "encdec": cfg.encoder_layers + cfg.n_layers}.get(cfg.family, cfg.n_layers)
     assert launched == per_prefill
@@ -256,10 +256,10 @@ def _stream_case(card, offs, szs) -> int:
 
     o, s = torch.from_numpy(offs).to(card), torch.from_numpy(szs).to(card)
     rf_kernel.wide_rows(reset=True)
-    rf_ops.reset_launches()
+    tracing.reset_counters("launch.")
     rf, _, dist = rf_ops.stream_stats_op(o, s)
     rf_only = rf_ops.stream_rf_op(o, s)
-    assert rf_ops.launches == {"stream_stats": 1, "stream_rf": 1}
+    assert tracing.counters("launch.") == {"launch.stream_stats": 1, "launch.stream_rf": 1}
     rf_p, dist_p = rf_ref.stream_stats_ref(o, s)
     rf_np, _, dist_np = stream_stats_batch_np(offs, szs)
     assert torch.equal(rf, rf_p) and torch.equal(dist, dist_p)
@@ -297,9 +297,9 @@ def test_stream_kernel_on_the_sweeps_one_launch_matrix(card):
     offs = np.concatenate([s.padded_stream_matrix()[0] for s in shards])
     szs = np.concatenate([s.padded_stream_matrix()[1] for s in shards])
     _stream_case(card, offs, szs)
-    rf_ops.reset_launches()
+    tracing.reset_counters("launch.")
     got = _score_shards_kernel(shards, 128, card)
-    assert rf_ops.launches["stream_stats"] == 1
+    assert tracing.counter("launch.stream_stats") == 1
     want = _score_shards_kernel(shards, 128, torch.device("cpu"))
     for g, w in zip(got, want):
         for f in ("rf_sum", "percentage", "seek_distance", "nbytes", "offset_sum"):
@@ -401,9 +401,9 @@ def _replay_on_card(card, events, lanes, state0) -> dict:
     and against the CPU run (the same gates); one launch."""
 
     p, g, steps = ed.replay_inputs(events, lanes, state0, device=card)
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.")
     got = replay_ops.replay_op(p, g, steps)
-    assert replay_ops.launches["replay"] == 1
+    assert tracing.counter("launch.replay") == 1
     plain = replay_ops.plain(p, g, steps)
     cpu = ed.replay_lanes(events, lanes, state0, device="cpu")
     for k, v in got.items():
@@ -424,9 +424,45 @@ def test_replay_kernel_vs_plain_on_golden_program(card, workload, ssd):
                         policy="range-offset", ssd=ssd,
                         ssd_capacity=golden._node_capacity(batch.total_bytes), device=card)
     _replay_on_card(card, *prog._lane_inputs(batch)[:3])
-    replay_ops.reset_launches()
+    tracing.reset_counters("launch.")
     prog.run(batch)
-    assert replay_ops.launches["replay"] == 1
+    assert tracing.counter("launch.replay") == 1
+
+
+def test_the_replay_kernel_lies_inside_its_span_on_the_profilers_clock(card):
+    """Under the profiler, the replay kernel's interval from the profiler's
+    raw events, moved onto the tracer's clock by the sweep's offset, lies
+    between the ``replay`` span's start and the end of its ``wait`` (the
+    status read-back); the spans add no device rows."""
+
+    batch = golden_trace("mixed-burst")
+    prog = FleetProgram(num_nodes=golden.FIXTURE_NODES, schemes=golden.FIXTURE_SCHEMES,
+                        policy="range-offset",
+                        ssd_capacity=golden._node_capacity(batch.total_bytes), device=card)
+    prog.run(batch)
+    torch.cuda.synchronize()
+    tracing.take()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prog.run(batch)
+        torch.cuda.synchronize()
+    spans = tracing.take()
+    kernels = [iv for iv, e in zip(tracing.device_intervals(prof), sorted(
+        (e for e in prof.profiler.kineto_results.events()
+         if e.device_type() == torch.autograd.DeviceType.CUDA),
+        key=lambda e: (e.start_ns(), e.end_ns()))) if "replay_kernel" in e.name()]
+    assert len(kernels) == 1
+    (sweep,) = [s for s in spans if s.name == "sweep"]
+    (replay,) = [s for s in spans if s.name == "replay"]
+    (wait,) = [s for s in spans if s.name == "wait" and s.parent == replay.id]
+    off = sweep.clock_offset_ns
+    k0, k1 = kernels[0]
+    print(f"clock offset {off} ns; kernel {k1 - k0} ns, starts "
+          f"{k0 - (replay.t0_ns + off)} ns after the replay span opens, ends "
+          f"{wait.t1_ns + off - k1} ns before its wait closes")
+    assert replay.t0_ns + off <= k0 < k1 <= wait.t1_ns + off
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert not names & {"sweep", "shard", "score", "tapes", "stack", "pack", "replay",
+                        "readback", "results", "wait"}
 
 
 @pytest.mark.parametrize("field", ["net_t", "hddt_0"])
@@ -486,9 +522,9 @@ def test_service_on_card_equals_numpy_scoring(card, scenario):
     if scenario == "every-kind":
         kw.update(ssd="ftl", admission_occupancy=0.9)
     svc = ReshardCountingService(injector=make and make(), device=card, **kw)
-    rf_ops.reset_launches()
+    tracing.reset_counters("launch.")
     got = svc.run(batch)
-    assert rf_ops.launches["stream_stats"] == 1 + svc.reshards
+    assert tracing.counter("launch.stream_stats") == 1 + svc.reshards
     assert (svc.reshards > 0) == (scenario != "healthy")
     want = BurstBufferService(injector=make and make(), score_backend="numpy", device=card,
                               **kw).run(batch)
@@ -559,12 +595,11 @@ def test_bf16_checkpoint_round_trip_on_card(card, arch, tmp_path):
                            b.view(torch.int16) if b.dtype == torch.bfloat16 else b), name
     toks = torch.randint(0, cfg.vocab_size, (2, 16), device=card,
                          generator=torch.Generator(device=card).manual_seed(1))
-    fa_ops.reset_launches()
-    ssm_ops.reset_launches()
+    tracing.reset_counters("launch.")
     with torch.inference_mode():
         live, _ = model.prefill(want, {"tokens": toks})
         back, _ = model.prefill(restored, {"tokens": toks})
-    assert fa_ops.launches["flash_attention"] + ssm_ops.launches["ssm_scan"] == 2 * cfg.n_layers
+    assert tracing.counter("launch.flash_attention") + tracing.counter("launch.ssm_scan") == 2 * cfg.n_layers
     assert torch.equal(live, back)
 
 
@@ -588,9 +623,9 @@ def _nccl_mesh_steps(arch: str) -> dict:
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
-        fa_ops.reset_launches()
+        tracing.reset_counters("launch.")
         sharded = sharded_steps(cfg, tree, batch, mesh, device=dev)
-        launches = fa_ops.launches["flash_attention"]
+        launches = tracing.counter("launch.flash_attention")
     finally:
         dist.destroy_process_group()
     return {"plain": plain, "sharded": sharded, "launches": launches, "layers": cfg.n_layers}

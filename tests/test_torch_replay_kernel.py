@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import FleetProgram, compute_stream_scores
 from repro_torch.core import engine_device as ed
 from repro_torch.core.device_model import HDDModel, InterferenceModel, make_storage_model
@@ -423,9 +424,9 @@ def _packed(window: int = 8) -> tuple[ops.Packed, list, int]:
 
 def test_replay_op_runs_the_plain_version_on_the_cpu():
     p, g, s = _packed()
-    ops.reset_launches()
+    tracing.reset_counters("launch.")
     out = ops.replay_op(p, g, s)
-    assert tuple(out) == ref.OUTPUTS and ops.launches["replay"] == 0
+    assert tuple(out) == ref.OUTPUTS and tracing.counter("launch.replay") == 0
     assert out["flushes"].dtype == torch.int32 and out["io_seconds"].dtype == torch.float64
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels.ssm_scan.ops import ssm_scan_op as jax_op
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_ref
+from repro_torch import tracing
 from repro_torch.kernels.ssm_scan import kernel, ops, ref
 
 pytestmark = pytest.mark.slow  # interpret-mode Pallas runs, as tests/test_kernel_ssm_scan.py
@@ -120,10 +121,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(over, exc):
 
 
 def test_cpu_runs_the_plain_version_and_counts_no_launch():
-    ops.reset_launches()
+    tracing.reset_counters("launch.")
     a = _args()
     ops.ssm_scan_op(a["delta"], a["B"], a["C"], a["x"], a["A"])
-    assert ops.launches["ssm_scan"] == 0
+    assert tracing.counter("launch.ssm_scan") == 0
 
 
 def test_other_devices_raise():

@@ -22,6 +22,7 @@ import torch
 from repro.core.random_factor import stream_stats_batch_np
 from repro.kernels.stream_rf import ops as pallas_ops
 from repro.kernels.stream_rf.ref import threshold_quantile_ref as jnp_quantile
+from repro_torch import tracing
 from repro_torch.core.random_factor import stream_stats_batch
 from repro_torch.kernels import build
 from repro_torch.kernels.stream_rf import kernel, ops, ref
@@ -77,7 +78,7 @@ def test_plain_versions_equal_numpy_oracle(m, n, kind):
 def test_ops_on_cpu_tensors_equal_numpy_oracle(m, n, kind):
     offs, szs = _rows(kind, m, n, seed=m * 7 + n)
     rf_np, pct_np, dist_np = stream_stats_batch_np(offs, szs)
-    ops.reset_launches()
+    tracing.reset_counters("launch.")
     rf, pct, dist = ops.stream_stats_op(_t(offs), _t(szs))
     assert rf.dtype == dist.dtype == torch.int64 and pct.dtype == torch.float64
     assert np.array_equal(rf.numpy(), rf_np)
@@ -86,7 +87,7 @@ def test_ops_on_cpu_tensors_equal_numpy_oracle(m, n, kind):
     assert np.array_equal(ops.stream_rf_op(_t(offs), _t(szs)).numpy(), rf_np)
     assert np.array_equal(
         ops.random_percentage_op(_t(offs), _t(szs)).numpy(), pct_np)
-    assert ops.launches == {"stream_stats": 0, "stream_rf": 0}
+    assert tracing.counters("launch.") == {}
 
 
 def _tie_free(m: int, n: int, seed: int):

@@ -5,8 +5,8 @@
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
-1. build   — compile the four CUDA kernels (``stream_rf``,
-   ``flash_attention``, ``ssm_scan``, ``replay``) from
+1. build   — compile the five CUDA kernels (``stream_rf``,
+   ``flash_attention``, ``ssm_scan``, ``replay``, ``tapes``) from
    ``src/repro_torch/kernels/*/csrc``, one nvcc per source, all started
    together;
 2. kernels — hold ``stream_stats`` and ``stream_rf`` on the card against
@@ -34,17 +34,22 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    30 s gap mid-trace) over 64 nodes x 4 schemes = 256 lanes,
    range-offset sharding; kernel launch counts are reset just before and
    read just after the first sweep, which must launch ``stream_stats``
-   exactly once (every shard's streams in one matrix) and ``replay``
-   exactly once (every lane's whole tape in one launch), as must every
-   later call; bytes must be conserved, and the card's result must match
-   the same sweep run on the CPU (whether bit for bit is printed); the
+   exactly once (every shard's streams in one matrix), ``tapes`` once a
+   shard with requests (none on the host) and ``replay`` exactly once
+   (every lane's whole tape in one launch), as must every later call;
+   bytes must be conserved, the card's tapes must equal the CPU's NumPy
+   tapes bit for bit, and the card's result must match the same sweep
+   run on the CPU (whether bit for bit is printed); the
    first call runs under the profiler, so the tracer records its spans,
    and their summary (``tracing.summary``: each layer's wall, CPU and self
    time, host waits and copied bytes) is printed; one more steady call is
    timed after each of the profiled run and the CPU run; then the
    ``replay`` kernel against its plain torch version on the card on the
    sweep's own packed inputs (integer fields exact, clocks within 1e-9
-   relative), timed beside it, and one lane of each scheme alone;
+   relative), timed beside it, and one lane of each scheme alone; and
+   the ``tapes`` kernel against its plain NumPy version on the sweep's
+   largest shard and on one shard of the paper's random IOR run (the
+   benchmark's shape), bit for bit, timed beside it;
    sanitize — the fleet path with every sanitizer check armed
    (``sanitizing()``, ``sanitize=True``): the 16 golden fixtures through
    ``FleetProgram``, bit-equal to the unsanitized card runs above; the
@@ -82,8 +87,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    failover; each run equal to the same run scored by the NumPy oracle;
    (b)'s healthy node results equal to ``FleetSimulator`` above;
    any-len — the sweep at ``stream_len`` 96 and 2048, one launch of each
-   kernel each, equal to ``score_backend="numpy"`` (no row of the 2048 sweep takes the
-   long-row kernel's exact branch);
+   kernel each (``tapes`` one a shard, its columns in the tapes equal to
+   its plain NumPy version's bit for bit), equal to
+   ``score_backend="numpy"`` (no row of the 2048 sweep takes the long-row
+   kernel's exact branch);
    examples — the reference's user entry points as the port runs them:
    each ``examples_torch/*.py`` script's ``main()`` and that of
    ``experiments/anomaly_hunt_torch.py`` in this process, on the card
@@ -241,18 +248,22 @@ from repro_torch.core import FleetProgram, TraceBatch, compute_stream_scores  # 
 from repro_torch.core import FleetResult, FleetSimulator, run_schemes  # noqa: E402
 from repro_torch.core import simulate_device  # noqa: E402
 from repro_torch.core import engine_device as ed  # noqa: E402
-from repro_torch.core.random_factor import stream_stats_batch_np  # noqa: E402
+from repro_torch.core.random_factor import DEFAULT_STREAM_LEN, stream_stats_batch_np  # noqa: E402
+from repro_torch.core.device_model import HDDModel, IngestLink, SSDModel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.replay import kernel as replay_kernel  # noqa: E402
 from repro_torch.kernels.replay import ops as replay_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel  # noqa: E402
+from repro_torch.kernels.tapes import kernel as tapes_kernel  # noqa: E402
+from repro_torch.kernels.tapes import ops as tapes_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as ssm_ref  # noqa: E402
 from repro_torch.kernels.stream_rf import kernel, ops, ref  # noqa: E402
 from repro_torch.launch.serve import pad_cache, serve  # noqa: E402
 from repro_torch.core.workloads import MiB, ior, mixed, relabel  # noqa: E402
+from repro_torch.distributed.sharding import assign_nodes  # noqa: E402
 from repro_torch.service import BurstBufferService, FaultInjector  # noqa: E402
 from repro_torch.service import loop as service_loop  # noqa: E402
 from repro_torch.service import poisson_arrivals, scripted  # noqa: E402
@@ -285,8 +296,11 @@ REPLACES = {
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:67",
     # no Pallas kernel: the reference's XLA program (lax.scan of vmap(_event_step))
     "replay": "src/repro/core/engine_device.py:1165",
+    # no Pallas kernel: the per-request columns of the reference's host tape builder
+    "tapes": "src/repro/core/engine_device.py:425",
 }
 REPLAY_SOURCE = "src/repro_torch/kernels/replay/csrc/replay.cu"
+TAPES_SOURCE = "src/repro_torch/kernels/tapes/csrc/tapes.cu"
 # float64 peak of an H100 SXM outside the tensor cores (data sheet), and
 # the replay's float64 operations read off replay.cu, split as the kernel
 # runs them: the chain's stream event with one region fill (about 80: its
@@ -447,7 +461,8 @@ def phase_build() -> None:
     """Build every kernel of the port, one nvcc per source, all at once."""
 
     t0 = time.perf_counter()
-    libs = (kernel.LIBRARY, fa_kernel.LIBRARY, ssm_kernel.LIBRARY, replay_kernel.LIBRARY)
+    libs = (kernel.LIBRARY, fa_kernel.LIBRARY, ssm_kernel.LIBRARY, replay_kernel.LIBRARY,
+            tapes_kernel.LIBRARY)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
@@ -839,6 +854,25 @@ def replay_row(launches: dict, held: dict, ftl: dict, golden_replays: int,
                          "(one launch a run); not a Pallas kernel: the reference's XLA program"}
 
 
+def tapes_row(launches: dict, held: dict, any_len: dict) -> dict:
+    """The kernels line's ``tapes`` entry: its time, plain time and bound at
+    the benchmark's shape (one shard of the paper's IOR run) and on the
+    1M-request sweep's largest shard, and its launches (one a shard)."""
+
+    paper, sweep = held["tapes"]["paper"], held["tapes"]["sweep"]
+    return {"name": "tapes", "route": "cuda", "source": TAPES_SOURCE,
+            "replaces": REPLACES["tapes"], "launches": launches["tapes"],
+            "max_abs_err": 0.0, "ms": paper["ms"], "plain_host_ms": paper["plain_host_ms"],
+            "bound_ms": paper["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "shape": paper["shape"], "sweep_ms": sweep["ms"],
+            "sweep_plain_host_ms": sweep["plain_host_ms"], "sweep_bound_ms": sweep["bound_ms"],
+            "sweep_shape": sweep["shape"],
+            "launches_any_len": {n: r["launches"]["tapes"] for n, r in any_len.items()},
+            "library_call": "none: no PyTorch call computes the anchors",
+            "main_path": "FleetProgram.run's tapes on a tape-cache miss (one launch a shard "
+                         "with requests); not a Pallas kernel: the reference's host NumPy"}
+
+
 def phase_golden(dev: torch.device) -> tuple[dict, int]:
     """The 16 fixtures on the card, one ``replay`` launch a program and one
     a ``simulate_device``; returns (workload, policy) -> the program's
@@ -986,11 +1020,16 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
         t_first = time.perf_counter() - t0
     first_spans = tracing.summary(tracing.take())
     first_counts = tracing.counters()
-    launches = launch_counts("stream_stats", "stream_rf", "replay")
+    launches = launch_counts("stream_stats", "stream_rf", "replay", "tapes")
     wide = kernel.wide_rows(reset=True)
     if launches["stream_stats"] != 1:
         fail(f"{tag} stream_stats launched {launches['stream_stats']} times on the "
              "main path, expected exactly 1 (all shards in one launch)")
+    shards = sum(s.num_requests > 0 for s in prog.shard(batch))
+    if launches["tapes"] != shards or tracing.counter("tapes.host"):
+        fail(f"{tag} tapes launched {launches['tapes']} times with "
+             f"{tracing.counter('tapes.host')} tapes on the host, expected one launch for "
+             f"each of the {shards} shards with requests")
     one_replay(tag, "the first call", launches["replay"])
     probe = ssd == "constant"
     first = res
@@ -1041,7 +1080,14 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
     log(f"{tag} total bytes per scheme: {json.dumps(totals)}")
 
     t0 = time.perf_counter()
-    cpu_res = FleetProgram(device="cpu", **kw).run(batch)
+    cpu_prog = FleetProgram(device="cpu", **kw)
+    cpu_res = cpu_prog.run(batch)
+    # the tapes kernel's tapes against the CPU's NumPy tapes, bit for bit
+    for i, (got, want) in enumerate(zip(prog._tape_cache[1], cpu_prog._tape_cache[1])):
+        differ = [k for k in want if got[k].dtype != want[k].dtype
+                  or got[k].tobytes() != want[k].tobytes()]
+        if differ:
+            fail(f"{tag} shard {i}: the card's tape differs from the NumPy tape in {differ}")
     worst = same_within(f"{tag} card vs cpu", res, cpu_res)
     bitwise = all(golden.fleet_result_to_dict(res[s]) == golden.fleet_result_to_dict(cpu_res[s])
                   for s in SCHEMES)
@@ -1056,7 +1102,8 @@ def phase_sweep(dev: torch.device, batch: TraceBatch, ssd: str = "constant"
             f"(best steady before them {t_best:.4f} s); the main thread's cpu time over "
             f"the wall time of each timed steady call, in order: {json.dumps(times['cpu_share'])}")
     held = replay_held(dev, prog, batch, tag)
-    held.update(bit_equal_cpu=bitwise, max_rel_gap_cpu=worst)
+    held.update(bit_equal_cpu=bitwise, max_rel_gap_cpu=worst,
+                tapes=tapes_held(dev, prog.shard(batch), prog.stream_len, prog, tag))
     log(f"{tag} profiled steady run with the replay kernel's own time (CUDA events; the "
         f"profiler does not see it): busy {busy + held['ms'] / 1e3:.4f} s of {t_prof:.3f} s "
         f"({(busy + held['ms'] / 1e3) / t_prof:.2%}), {n_ops} + 1 device ops")
@@ -1162,6 +1209,73 @@ def replay_held(dev: torch.device, prog: FleetProgram, batch: TraceBatch, tag: s
         f"{worst_rel!r}); kernel {ms:.4f} ms (raw launches), plain {plain_ms:.1f} ms, bound "
         f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}; operations {ops_ms * 1e3:.3f} us); "
         f"one lane alone (ms) {json.dumps(one_lane)}")
+    return out
+
+
+def tapes_consts(prog: FleetProgram) -> list[float]:
+    """The tapes kernel's constants (``tapes_ops.CONSTS``) of ``prog``'s models."""
+
+    hdd, link, ssd = prog.hdd or HDDModel(), prog.link or IngestLink(), prog.ssd or SSDModel()
+    return [hdd.seek_time, hdd.seek_dist_coeff, hdd.seq_bw, link.bw, ssd.write_bw]
+
+
+def tapes_columns_held(tag: str, prog: FleetProgram, batch: TraceBatch) -> None:
+    """The tapes kernel's columns in ``prog``'s cached tapes (built on the
+    card) against its plain NumPy version on the CPU, bit for bit, shard by
+    shard: the columns at the tape's stream events."""
+
+    consts = tapes_consts(prog)
+    for i, (shard, tape) in enumerate(zip(prog.shard(batch), prog._tape_cache[1])):
+        if not shard.num_requests:
+            continue
+        cols = torch.from_numpy(np.stack([shard.offsets, shard.sizes, shard.file_ids]))
+        want = tapes_ops.columns_op(cols, prog.stream_len, consts).numpy()
+        got = np.stack([tape[k][~tape["is_gap"]] for k in tapes_ops.COLUMNS])
+        differ = [k for k, g, w in zip(tapes_ops.COLUMNS, got, want)
+                  if g.tobytes() != w.tobytes()]
+        if differ:
+            fail(f"{tag} shard {i}: the tapes kernel's columns differ from the NumPy "
+                 f"version's in {differ}")
+
+
+def tapes_bound_ms(n: int, stream_len: int) -> float:
+    """The least time of one tapes launch: the shard's three int64 request
+    columns read once and its columns written once, at the HBM rate."""
+
+    streams = -(-n // stream_len)
+    return (len(tapes_ops.INPUTS) * n + len(tapes_ops.COLUMNS) * streams) * 8 \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def tapes_held(dev: torch.device, shards: list, stream_len: int, prog: FleetProgram,
+               tag: str) -> dict:
+    """The tapes kernel on the largest of ``shards`` and on one shard of the
+    SSDUP+ paper's random IOR run on its 2 I/O nodes (32,768 requests, the
+    benchmark's shape): its columns against the plain NumPy version's, bit
+    for bit; its time by launches back to back (CUDA events), the plain
+    version's on the host, and the bytes bound."""
+
+    paper = TraceBatch.from_requests(ior("segmented-random", 16, seed=0).trace)
+    node = assign_nodes("range-offset", paper.offsets, paper.file_ids, paper.app_ids, 2)
+    consts = tapes_consts(prog)
+    out = {}
+    for name, shard, length in (
+            ("sweep", max(shards, key=lambda s: s.num_requests), stream_len),
+            ("paper", paper.shard(node, 2)[0], DEFAULT_STREAM_LEN)):
+        host = torch.from_numpy(np.stack([shard.offsets, shard.sizes, shard.file_ids]))
+        t0 = time.perf_counter()
+        want = tapes_ops.columns_op(host, length, consts).numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        cols = host.to(dev)
+        got = tapes_ops.columns_op(cols, length, consts).cpu().numpy()
+        if got.tobytes() != want.tobytes():
+            fail(f"{tag} tapes kernel differs from its NumPy version on the {name} shard")
+        ms = cuda_ms(lambda: tapes_ops.columns_op(cols, length, consts), iters=50, warmup=3)
+        out[name] = {"ms": ms, "plain_host_ms": plain_ms,
+                     "bound_ms": tapes_bound_ms(shard.num_requests, length),
+                     "shape": [shard.num_requests, length]}
+    log(f"{tag} tapes kernel vs its NumPy version: bit for bit on the sweep's largest "
+        f"shard and the paper's IOR shard; {json.dumps(out)}")
     return out
 
 
@@ -1531,12 +1645,18 @@ def phase_any_len_sweeps(dev: torch.device, batch: TraceBatch) -> dict:
         kernel.long_rows(reset=True)
         kernel.long_wide_rows(reset=True)
         t0 = time.perf_counter()
-        res = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
-                           stream_len=stream_len, ssd_capacity=cap, device=dev).run(batch)
+        prog = FleetProgram(num_nodes=SWEEP_NODES, schemes=SCHEMES, policy="range-offset",
+                            stream_len=stream_len, ssd_capacity=cap, device=dev)
+        res = prog.run(batch)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-        launches = launch_counts("stream_stats", "stream_rf", "replay")
+        launches = launch_counts("stream_stats", "stream_rf", "replay", "tapes")
         one_replay("[any-len]", f"the stream_len={stream_len} sweep", launches["replay"])
+        shards = sum(s.num_requests > 0 for s in prog.shard(batch))
+        if launches["tapes"] != shards:
+            fail(f"stream_len={stream_len}: tapes launched {launches['tapes']} times, "
+                 f"expected one for each of the {shards} shards with requests")
+        tapes_columns_held(f"[any-len] stream_len={stream_len}", prog, batch)
         long = kernel.long_rows(reset=True)
         exact = kernel.long_wide_rows(reset=True)
         if exact:
@@ -3540,6 +3660,7 @@ def main() -> int:
     kernels[0]["service_scoring"] = service["kernel"]
     kernels[0]["launches_sanitize"] = sanitized["launches"]
     kernels.append(replay_row(launches, held, ftl, golden_replays, sanitized, host, any_len))
+    kernels.append(tapes_row(launches, held, any_len))
     model_launches = {}  # summed over the serve runs, per kernel instance
     for arch in SERVE_ARCHS:
         t_arch = time.perf_counter()

@@ -7,11 +7,14 @@ lane at once (:class:`repro_torch.core.fleet.FleetProgram`).
 * **events** — :func:`build_events` lowers one shard's
   (:class:`~repro_torch.core.trace.TraceBatch`,
   :class:`~repro_torch.core.trace.StreamScores`) pair into an event tape
-  on the host: one entry per stream or compute gap, in the batched
-  engine's firing order, with every timing input precomputed in float64
+  (NumPy): one entry per stream or compute gap, in the batched engine's
+  firing order, with every timing input precomputed in float64
   (whole-stream HDD time, network time, SSD walls, and the Eq. 6 window,
-  prefix, suffix and cross-stream-merge anchors).  :func:`stack_events`
-  pads tapes to a shared length with ``valid=False`` entries.
+  prefix, suffix and cross-stream-merge anchors; on the card the columns
+  that depend on every request are one launch of
+  :mod:`repro_torch.kernels.tapes`).
+  :func:`stack_events` pads tapes to a shared length with ``valid=False``
+  entries.
 * **state** — :func:`initial_lane_state` builds each lane's state (clocks,
   byte counters, region occupancy, the single in-flight flush job, the
   adaptive-threshold window as a circular buffer, routing hysteresis).
@@ -50,7 +53,8 @@ from .. import tracing
 from ..analysis import sanitize as _sanitize
 from ..device import resolve_device
 from ..kernels.replay import ops as replay_ops
-from ..kernels.replay.ref import N_WINDOWS, SUFFIX_ANCHORS, WINDOW_SCALES, XMERGE_D
+from ..kernels.tapes import ops as tapes_ops
+from ..kernels.replay.ref import N_WINDOWS, SUFFIX_ANCHORS, XMERGE_D
 from .adaptive import DEFAULT_THRESHOLD, AdaptiveThreshold, StaticWatermarkThreshold
 from .device_model import HDDModel, IngestLink, InterferenceModel, SSDModel
 from .random_factor import DEFAULT_STREAM_LEN
@@ -95,153 +99,28 @@ _EVENT_FIELDS = {
 # ---------------------------------------------------------------------------
 
 
-def _cross_stream_merges(batch, bounds: np.ndarray) -> np.ndarray:
-    """Per-stream cross-merge counts ``(ns, XMERGE_D)``: ``out[j, d-1]`` =
-    contiguous pairs stream ``j`` forms with stream ``j - d`` in the global
-    per-file offset sort (each pair assigned to the later stream)."""
+def _columns(batch, stream_len: int, hdd: HDDModel, link: IngestLink, ssd,
+             device: torch.device) -> torch.Tensor:
+    """The ``tapes`` columns of the shard (``n >= 1``) on ``device``.  On
+    the card its three request columns are staged in pinned memory and
+    copied there in one copy that the host does not wait for, and the
+    kernel is enqueued; its inputs and scratch are freed then, so a sweep
+    holds one shard's at a time."""
 
-    ns = len(bounds) - 1
-    out = np.zeros((ns, XMERGE_D), dtype=np.float64)
-    if batch.num_requests < 2:
-        return out
-    sid = np.repeat(np.arange(ns, dtype=np.int64), np.diff(bounds))
-    order = np.lexsort((batch.offsets, batch.file_ids))
-    so = batch.offsets[order]
-    ss = batch.sizes[order]
-    sf = batch.file_ids[order]
-    ssid = sid[order]
-    contig = (sf[1:] == sf[:-1]) & (so[1:] == so[:-1] + ss[:-1])
-    d = np.abs(ssid[1:] - ssid[:-1])
-    later = np.maximum(ssid[1:], ssid[:-1])
-    for k in range(1, XMERGE_D + 1):
-        sel = contig & (d == k)
-        out[:, k - 1] = np.bincount(later[sel], minlength=ns)
-    return out
+    cuda = device.type == "cuda"
+    cols = torch.empty((len(tapes_ops.INPUTS), batch.num_requests), dtype=torch.int64,
+                       pin_memory=cuda)
+    np.stack([batch.offsets, batch.sizes, batch.file_ids], out=cols.numpy())
+    if cuda:
+        cols = tracing.to_device(cols, device, non_blocking=True)
+    consts = [hdd.seek_time, hdd.seek_dist_coeff, hdd.seq_bw, link.bw, ssd.write_bw]
+    return tapes_ops.columns_op(cols, stream_len, consts)
 
 
-def _masked_predecessors(mask: np.ndarray) -> np.ndarray:
-    """Index of each element's nearest PRECEDING masked element (-1: none),
-    so a subset of a sorted sequence is scored without a re-sort."""
-
-    idx = np.arange(mask.shape[0], dtype=np.int64)
-    pidx = np.maximum.accumulate(np.where(mask, idx, -1))
-    prev = np.empty_like(pidx)
-    prev[0] = -1
-    prev[1:] = pidx[:-1]
-    return prev
-
-
-def _window_seek_anchors(
-    batch, bounds: np.ndarray
-) -> tuple[np.ndarray, np.ndarray]:
-    """Eq. 6 seek anchors of dyadic arrival-windows of every stream:
-    ``(wf, wn)`` of shape ``(ns, N_WINDOWS)`` — each window scored alone,
-    extent count and distinct-file baseline, scale-major columns."""
-
-    ns = len(bounds) - 1
-    lens = np.diff(bounds)
-    wf = np.zeros((ns, N_WINDOWS), dtype=np.float64)
-    wn = np.zeros((ns, N_WINDOWS), dtype=np.float64)
-    if batch.num_requests == 0:
-        return wf, wn
-    sid = np.repeat(np.arange(ns, dtype=np.int64), lens)
-    pos_in = np.arange(batch.num_requests, dtype=np.int64) - np.repeat(
-        bounds[:-1], lens
-    )
-    order = np.lexsort((batch.offsets, batch.file_ids, sid))
-    so = batch.offsets[order]
-    ss = batch.sizes[order]
-    sf = batch.file_ids[order]
-    sdi = sid[order]
-    spos = pos_in[order]
-    slen = lens[sdi]
-    col = 0
-    for s in range(WINDOW_SCALES):
-        w = 1 << s
-        # window of position p: boundaries at round(k * len / w), i.e.
-        # 2*len*k < (2p+1)*w -- integer-exact
-        win = np.minimum(
-            ((2 * spos + 1) * w - 1) // np.maximum(2 * slen, 1), w - 1
-        )
-        for k in range(w):
-            m = win == k
-            prev = _masked_predecessors(m)
-            pc = np.maximum(prev, 0)
-            same = m & (prev >= 0) & (sdi[pc] == sdi) & (sf[pc] == sf)
-            contig = same & (so == so[pc] + ss[pc])
-            wf[:, col + k] = np.bincount(sdi[m & ~contig], minlength=ns)
-            wn[:, col + k] = np.bincount(sdi[m & ~same], minlength=ns)
-        col += w
-    return wf, wn
-
-
-def _prefix_seek_anchors(batch, bounds: np.ndarray) -> np.ndarray:
-    """``(ns, SUFFIX_ANCHORS + 1)`` Eq. 6 seek counts of every stream's
-    arrival-order prefix ``[0, round(j * n / A))`` sorted alone."""
-
-    ns = len(bounds) - 1
-    out = np.zeros((ns, SUFFIX_ANCHORS + 1), dtype=np.float64)
-    if batch.num_requests == 0:
-        return out
-    lens = np.diff(bounds)
-    sid = np.repeat(np.arange(ns, dtype=np.int64), lens)
-    pos_in = np.arange(batch.num_requests, dtype=np.int64) - np.repeat(
-        bounds[:-1], lens
-    )
-    order = np.lexsort((batch.offsets, batch.file_ids, sid))
-    so = batch.offsets[order]
-    ss = batch.sizes[order]
-    sf = batch.file_ids[order]
-    sdi = sid[order]
-    spos = pos_in[order]
-    for j in range(1, SUFFIX_ANCHORS + 1):
-        k = np.floor(j * lens / SUFFIX_ANCHORS + 0.5).astype(np.int64)
-        m = spos < k[sdi]
-        prev = _masked_predecessors(m)
-        pc = np.maximum(prev, 0)
-        same = m & (prev >= 0) & (sdi[pc] == sdi) & (sf[pc] == sf)
-        contig = same & (so == so[pc] + ss[pc])
-        out[:, j] = np.bincount(sdi[m & ~contig], minlength=ns)
-    return out
-
-
-def _suffix_hdd_anchors(batch, bounds: np.ndarray, hdd) -> np.ndarray:
-    """``(ns, SUFFIX_ANCHORS + 1)`` HDD times of every stream's suffix
-    starting at request ``round(j * n / A)``, scored like the oracle's
-    overflow path (Eq. 1 seeks + sweep distance + sequential time)."""
-
-    ns = len(bounds) - 1
-    out = np.zeros((ns, SUFFIX_ANCHORS + 1), dtype=np.float64)
-    if batch.num_requests == 0:
-        return out
-    lens = np.diff(bounds)
-    sid = np.repeat(np.arange(ns, dtype=np.int64), lens)
-    pos_in = np.arange(batch.num_requests, dtype=np.int64) - np.repeat(
-        bounds[:-1], lens
-    )
-    order = np.lexsort((batch.offsets, sid))
-    so = batch.offsets[order]
-    ss = batch.sizes[order]
-    sdi = sid[order]
-    spos = pos_in[order]
-    szf = ss.astype(np.float64)
-    for j in range(SUFFIX_ANCHORS):
-        k = np.floor(j * lens / SUFFIX_ANCHORS + 0.5).astype(np.int64)
-        m = spos >= k[sdi]
-        prev = _masked_predecessors(m)
-        pc = np.maximum(prev, 0)
-        pair = m & (prev >= 0) & (sdi[pc] == sdi)
-        resid = np.where(pair, so - so[pc] - ss[pc], 0)
-        rf = np.bincount(sdi[pair & (resid != 0)], minlength=ns)
-        dist = np.bincount(
-            sdi, weights=np.abs(resid).astype(np.float64), minlength=ns
-        )
-        nb = np.bincount(sdi[m], weights=szf[m], minlength=ns)
-        # same term order as HDDModel.write_time
-        out[:, j] = (
-            rf * hdd.seek_time + dist * hdd.seek_dist_coeff + nb / hdd.seq_bw
-        )
-    return out
+_F64_FIELDS = tuple(k for k, dt in _EVENT_FIELDS.items() if dt == np.float64)
+_F64_ROW = {k: i for i, k in enumerate(_F64_FIELDS)}
+#: Rows of the tape's float64 fields that the kernel's columns fill.
+_COLUMN_ROWS = np.array([_F64_ROW[k] for k in tapes_ops.COLUMNS])
 
 
 def build_events(
@@ -251,13 +130,30 @@ def build_events(
     hdd: HDDModel | None = None,
     ssd: "SSDModel | object | None" = None,
     link: IngestLink | None = None,
+    device: "torch.device | str | None" = None,
 ) -> dict[str, np.ndarray]:
     """Lower one shard into its event tape (struct of arrays, length E):
-    one event per stream or gap, in the batched engine's firing order."""
+    one event per stream or gap, in the batched engine's firing order.
+
+    The per-stream columns that depend on every request (``ssd_w``,
+    ``hddt_1..15``, ``pf_*``, ``wf_*``, ``wn_*``, ``xm_*``) come from
+    :func:`repro_torch.kernels.tapes.ops.columns_op` on ``device``
+    (``None``: the CPU): one launch of the ``tapes`` kernel on the card,
+    its plain NumPy version on the CPU, bit-equal.  A shard the kernel does
+    not take (an empty one, streams above its limit) has them on the CPU
+    and counts ``tapes.host``.  The tape is NumPy either way."""
 
     hdd = hdd or HDDModel()
     ssd = ssd or SSDModel()
     link = link or IngestLink()
+
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and not tapes_ops.takes(batch.num_requests, stream_len):
+        tracing.count("tapes.host")
+        dev = torch.device("cpu")
+    # the columns; on the card read back after the host's own work
+    cols = (_columns(batch, stream_len, hdd, link, ssd, dev) if batch.num_requests
+            else None)
 
     bounds = batch.stream_bounds(stream_len)
     ns = len(bounds) - 1 if batch.num_requests else 0
@@ -274,22 +170,6 @@ def build_events(
     # same association order as HDDModel.write_time / IngestLink.time
     hdd_t = rf * hdd.seek_time + dist * hdd.seek_dist_coeff + nb / hdd.seq_bw
     net_t = nb / link.bw
-    if ns:
-        anchors = _suffix_hdd_anchors(batch, bounds, hdd)
-        # anchor 0 (whole stream) comes straight from the scores
-        anchors[:, 0] = hdd_t
-        w = np.maximum(batch.sizes / link.bw, batch.sizes / ssd.write_bw)
-        ssd_w = np.add.reduceat(w, bounds[:-1])
-        wf, wn = _window_seek_anchors(batch, bounds)
-        pf = _prefix_seek_anchors(batch, bounds)
-        xm = _cross_stream_merges(batch, bounds)
-    else:
-        anchors = np.zeros((0, SUFFIX_ANCHORS + 1), dtype=np.float64)
-        ssd_w = np.zeros(0, dtype=np.float64)
-        wf = np.zeros((0, N_WINDOWS), dtype=np.float64)
-        wn = np.zeros((0, N_WINDOWS), dtype=np.float64)
-        pf = np.zeros((0, SUFFIX_ANCHORS + 1), dtype=np.float64)
-        xm = np.zeros((0, XMERGE_D), dtype=np.float64)
     mean_sz = nb / np.maximum(n_req, 1)
 
     gap_pos = batch.gap_positions
@@ -304,28 +184,30 @@ def build_events(
     else:
         gaps_before = np.zeros(0, dtype=np.int64)
 
-    ev = {k: np.zeros(ns + ng, dtype=dt) for k, dt in _EVENT_FIELDS.items()}
-    ev["valid"][:] = True
     s_idx = np.arange(ns) + gaps_before
     g_idx = np.arange(ng) + np.searchsorted(
         gaps_before, np.arange(ng), side="right"
     )
-    ev["pct"][s_idx] = pct
-    ev["nbytes"][s_idx] = nb
-    for j in range(SUFFIX_ANCHORS + 1):
-        ev[f"hddt_{j}"][s_idx] = anchors[:, j]
-        ev[f"pf_{j}"][s_idx] = pf[:, j]
-    for i in range(N_WINDOWS):
-        ev[f"wf_{i}"][s_idx] = wf[:, i]
-        ev[f"wn_{i}"][s_idx] = wn[:, i]
-    for d in range(1, XMERGE_D + 1):
-        ev[f"xm_{d}"][s_idx] = xm[:, d - 1]
-    ev["net_t"][s_idx] = net_t
-    ev["ssd_w"][s_idx] = ssd_w
-    ev["mean_sz"][s_idx] = mean_sz
+    # the streams' float64 fields, a row each; anchor 0 (whole stream) comes
+    # straight from the scores, hddt_16 and pf_0 stay 0
+    streams = np.zeros((len(_F64_FIELDS), ns), dtype=np.float64)
+    for k, v in (("pct", pct), ("hddt_0", hdd_t), ("net_t", net_t), ("mean_sz", mean_sz)):
+        streams[_F64_ROW[k]] = v
+    if cols is not None:
+        streams[_COLUMN_ROWS] = (tracing.to_host(cols) if cols.is_cuda else cols).numpy()
+    if ng:  # the streams' columns placed among the gaps
+        f64 = np.zeros((len(_F64_FIELDS), ns + ng), dtype=np.float64)
+        f64[:, s_idx] = streams
+        f64[_F64_ROW["gap_sec"], g_idx] = batch.gap_seconds
+    else:
+        f64 = streams
+    ev = dict(zip(_F64_FIELDS, f64))
+    ev["valid"] = np.ones(ns + ng, dtype=np.bool_)
+    ev["is_gap"] = np.zeros(ns + ng, dtype=np.bool_)
     ev["is_gap"][g_idx] = True
-    ev["gap_sec"][g_idx] = batch.gap_seconds
-    return ev
+    ev["nbytes"] = np.zeros(ns + ng, dtype=np.int64)
+    ev["nbytes"][s_idx] = nb
+    return {k: ev[k] for k in _EVENT_FIELDS}
 
 
 def _pad_len(n: int) -> int:
@@ -620,7 +502,7 @@ def simulate_device(
     if scores is None:
         scores = compute_stream_scores(batch, stream_len, device=dev)
     tape = build_events(
-        batch, scores, stream_len=stream_len, hdd=hdd, ssd=ssd, link=link
+        batch, scores, stream_len=stream_len, hdd=hdd, ssd=ssd, link=link, device=dev
     )
     out = replay_lanes(
         stack_events([tape]),

@@ -314,7 +314,8 @@ class FleetProgram:
         with tracing.span("tapes"):
             tapes = [
                 ed.build_events(shard, sc, stream_len=self.stream_len,
-                                hdd=self.hdd, ssd=self.ssd, link=self.link)
+                                hdd=self.hdd, ssd=self.ssd, link=self.link,
+                                device=self.device)
                 for shard, sc in zip(shards, scores)
             ]
             per_app = [ed.per_app_bytes(shard) for shard in shards]

@@ -207,11 +207,13 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
         return t.cpu()
 
 
-def to_device(t: torch.Tensor, device) -> torch.Tensor:
-    """``t`` copied to ``device``, counted in ``h2d_bytes``."""
+def to_device(t: torch.Tensor, device, non_blocking: bool = False) -> torch.Tensor:
+    """``t`` copied to ``device``, counted in ``h2d_bytes``; with
+    ``non_blocking`` a pinned ``t`` is copied on the current stream without
+    waiting (the caller leaves it unchanged until the stream has read it)."""
 
     count("h2d_bytes", t.numel() * t.element_size())
-    return t.to(device)
+    return t.to(device, non_blocking=non_blocking)
 
 
 def summary(spans: list[Span] | None = None) -> dict[str, dict]:

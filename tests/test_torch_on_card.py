@@ -32,6 +32,7 @@ from repro_torch.core.trace import _score_shards_kernel
 from repro_torch.distributed.sharding import assign_nodes
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.replay import ops as replay_ops
+from repro_torch.kernels.tapes import ops as tapes_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ref as ssm_ref
@@ -44,6 +45,8 @@ from repro_torch.testing.service import ReshardCountingService, same_service_res
 from repro_torch.testing import golden, stream_rows
 from repro_torch.testing.golden import fleet_result_to_dict
 from repro_torch.testing.traces import golden_trace, sweep_trace
+
+import tapes_cases  # the tapes kernel's cases, NumPy only
 
 pytestmark = pytest.mark.cuda
 
@@ -498,6 +501,67 @@ def test_replay_kernel_at_each_window_size(card, window, warm):
     prog = FleetProgram(num_nodes=4, policy="range-offset", ssd_capacity=32 << 20,
                         adaptive_window=window, threshold_warmup=warmup, device=card)
     _replay_on_card(card, *prog._lane_inputs(batch)[:3])
+
+
+@pytest.mark.parametrize("case", [c for c in tapes_cases.CASES if c != "empty"])
+def test_tapes_kernel_equals_numpy_columns(card, case):
+    """Every column of the tapes kernel bit for bit equal to the host tape
+    builder's NumPy columns, one launch a shard."""
+
+    shards, stream_len = tapes_cases.tape_case(case)
+    for batch in shards:
+        tracing.reset_counters("launch.")
+        cols = tapes_cases.shard_cols(batch).to(card)
+        got = tapes_ops.columns_op(cols, stream_len, tapes_cases.CONSTS)
+        assert tracing.counter("launch.tapes") == 1
+        want = tapes_cases.numpy_columns(batch, stream_len)
+        assert tapes_cases.same_bits(got.cpu().numpy(), want) == []
+
+
+def test_tapes_on_card_in_a_fresh_sweep(card):
+    """A fresh sweep of the paper's random IOR run on its 2 I/O nodes: one
+    tapes launch a shard on the cache's miss, none on its hit, tapes
+    bit-equal to the NumPy path's, and the sweep's peak device memory no
+    higher than the replay's packed inputs (1,224,704 B) with one shard's
+    tapes inputs held at a time."""
+
+    batch = tapes_cases.ior_trace("segmented-random")
+
+    def program(device):
+        return FleetProgram(num_nodes=tapes_cases.IOR_NODES, policy="range-offset",
+                            stream_len=128, adaptive_window=64, device=device)
+
+    program(card).run(batch)  # builds and loads every kernel
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    tracing.reset_counters()
+    prog = program(card)
+    prog.run(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    print(f"peak over the sweep {peak} B; counters {tracing.counters()}")
+    assert peak <= 1_224_704
+    assert tracing.counter("launch.tapes") == tapes_cases.IOR_NODES
+    assert tracing.counters("tapes.") == {}
+    tracing.reset_counters()
+    prog.run(batch)
+    assert tracing.counter("tape_cache.hit") == 1 and tracing.counter("launch.tapes") == 0
+    cpu = program("cpu")
+    cpu.run(batch)
+    for got, want in zip(prog._tape_cache[1], cpu._tape_cache[1]):
+        assert tapes_cases.same_tape(got, want) == []
+
+
+def test_tapes_above_the_kernels_limit_take_the_host_path(card):
+    batch = golden_trace("mixed-burst")
+    stream_len = tapes_ops.MAX_STREAM_LEN + 1
+    scores = compute_stream_scores(batch, stream_len, backend="numpy")
+    tracing.reset_counters()
+    got = ed.build_events(batch, scores, stream_len=stream_len, device=card)
+    assert tracing.counter("tapes.host") == 1 and tracing.counter("launch.tapes") == 0
+    want = ed.build_events(batch, scores, stream_len=stream_len)
+    assert tapes_cases.same_tape(got, want) == []
 
 
 SERVICE_FAULTS = {
